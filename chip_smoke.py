@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Smoke run of kungfu_tpu_torch on one CUDA card (an H100 for the numbers
+in PERF.md).
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  device   card name and power limit (`nvidia-smi`), torch and CUDA versions;
+  build    the kernels of csrc/ compiled by nvcc for sm_90a, one nvcc per
+           source, all at once;
+  kernel   each flash-attention kernel (forward with O and LSE, dQ with
+           delta, dK/dV) against its plain PyTorch version on the same inputs
+           at B=8, H=12, hd=64 in bf16: S=512 causal and not, and a ragged
+           S=500; then kernel, plain and library (SDPA) times by CUDA events;
+  train    `examples/bert_ssgd.main` at BERT-base width (12 layers, S=512,
+           batch 8) for 8 S-SGD(AdamW) steps on one fixed batch (on fresh
+           batches 8 steps move the loss less than the batch-to-batch
+           noise) as a world of one, with the
+           launch counters zeroed just before and read just after; the
+           first step's loss is then recomputed with the plain attention
+           core on the card and compared.
+Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
+failed check raises and the script exits non-zero before that last line.
+It also exits non-zero, printing no result, without a CUDA device or
+outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+B, H, S, HD = 8, 12, 512, 64
+S_RAGGED = 500
+STEPS = 8
+RTOL = ATOL = 2e-2  # bf16 parity, as tests/test_flash_attention.py holds it
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
+KERNEL_SOURCE = "kungfu_tpu_torch/csrc/flash_attention.cu"
+TPU_SOURCE = "kungfu_tpu/ops/flash_attention.py"
+# kernel -> (launch counter, pallas_call line, Pallas body) in TPU_SOURCE
+KERNELS = {
+    "flash_fwd": ("fwd", 194, "_kernel"),
+    "flash_dq": ("dq", 368, "_dq_kernel"),
+    "flash_dkv": ("dkv", 386, "_dkv_kernel"),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"chip_smoke check failed: {what}")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name: str, got, want) -> dict:
+    """Max abs error and the worst ratio of error to |want|*RTOL + ATOL."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ratio = (err / (ATOL + RTOL * want.abs())).max().item()
+    out = {"max_abs_err": err.max().item(), "worst_tol_ratio": ratio,
+           "finite": bool(got.isfinite().all())}
+    check(out["finite"] and ratio <= 1.0, f"{name} disagrees with its plain version: {out}")
+    return out
+
+
+def bounds(BH: int, S: int, hd: int, causal: bool) -> dict:
+    """Least time (ms) for each kernel's work on the H100: the larger of
+    bytes moved (each input read once, each output written once) over the
+    memory rate and matmul FLOPs over the bf16 tensor-core rate. Causal
+    work counts only the live (query, key) pairs."""
+    t = BH * S * hd * 2  # one bf16 (B*H, S, hd) tensor
+    row = BH * S * 4  # one f32 (B*H, S) tensor
+    pairs = BH * (S * (S + 1) // 2 if causal else S * S)
+    mm = 2 * hd * pairs  # FLOPs of one (S x S x hd) product over live pairs
+    work = {
+        "flash_fwd": (4 * t + row, 2 * mm),  # q k v -> o, lse
+        "flash_dq": (6 * t + 2 * row, 3 * mm),  # q k v o dO lse -> dq delta
+        "flash_dkv": (6 * t + 2 * row, 4 * mm),  # q k v dO lse delta -> dk dv
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops}
+    return out
+
+
+def kernel_phase(fa) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for causal, s in ((True, S), (False, S), (True, S_RAGGED)):
+        q, k, v, do = (torch.randn(B * H, s, HD, device=dev, dtype=torch.bfloat16,
+                                   generator=gen) for _ in range(4))
+        scale = 1.0 / math.sqrt(HD)
+        o, lse = fa._forward_cuda(q, k, v, causal, scale)
+        o_p, lse_p = fa._forward_plain(q, k, v, causal, scale)
+        dq, delta = fa._dq_cuda(q, k, v, o_p, do, lse_p, causal, scale)
+        dq_p, delta_p = fa._dq_plain(q, k, v, o_p, do, lse_p, causal, scale)
+        dk, dv = fa._dkv_cuda(q, k, v, do, lse_p, delta_p, causal, scale)
+        dk_p, dv_p = fa._dkv_plain(q, k, v, do, lse_p, delta_p, causal, scale)
+        torch.cuda.synchronize()
+        res = {
+            "O": compare("flash_fwd O", o, o_p), "LSE": compare("flash_fwd LSE", lse, lse_p),
+            "dQ": compare("flash_dq dQ", dq, dq_p), "delta": compare("flash_dq delta", delta, delta_p),
+            "dK": compare("flash_dkv dK", dk, dk_p), "dV": compare("flash_dkv dV", dv, dv_p),
+        }
+        for name, keys in (("flash_fwd", ("O", "LSE")), ("flash_dq", ("dQ", "delta")),
+                           ("flash_dkv", ("dK", "dV"))):
+            errs[name] = max([errs[name]] + [res[key]["max_abs_err"] for key in keys])
+        emit("kernel_check", B=B, H=H, S=s, hd=HD, causal=causal, dtype="bfloat16",
+             rtol=RTOL, atol=ATOL, results=res)
+
+    # times at the main path's shape: causal, S=512
+    q, k, v, do = (torch.randn(B * H, S, HD, device=dev, dtype=torch.bfloat16,
+                               generator=gen) for _ in range(4))
+    scale = 1.0 / math.sqrt(HD)
+    o, lse = fa._forward_plain(q, k, v, True, scale)
+    _, delta = fa._dq_plain(q, k, v, o, do, lse, True, scale)
+    ms = {
+        "flash_fwd": time_ms(lambda: fa._forward_cuda(q, k, v, True, scale)),
+        "flash_dq": time_ms(lambda: fa._dq_cuda(q, k, v, o, do, lse, True, scale)),
+        "flash_dkv": time_ms(lambda: fa._dkv_cuda(q, k, v, do, lse, delta, True, scale)),
+    }
+    plain_ms = {
+        "flash_fwd": time_ms(lambda: fa._forward_plain(q, k, v, True, scale), iters=5),
+        "flash_dq": time_ms(lambda: fa._dq_plain(q, k, v, o, do, lse, True, scale), iters=5),
+        "flash_dkv": time_ms(lambda: fa._dkv_plain(q, k, v, do, lse, delta, True, scale), iters=5),
+    }
+    q4, k4, v4, do4 = (t.view(B, H, S, HD) for t in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    sdpa_fb = time_ms(sdpa_fwd_bwd)
+    emit("kernel_times", shape=[B, H, S, HD], causal=True, dtype="bfloat16",
+         kernel_ms=ms, plain_ms=plain_ms, sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fb,
+         kernels_fwd_bwd_ms=sum(ms.values()))
+    return {"errs": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": {"flash_fwd": sdpa_fwd, "flash_dq": None, "flash_dkv": None},
+            "bounds": bounds(B * H, S, HD, True)}
+
+
+def train_phase(fa) -> dict:
+    import torch
+
+    from kungfu_tpu_torch.examples import bert_ssgd
+    from kungfu_tpu_torch.models.transformer import TransformerConfig
+
+    argv = ["--config", "bert-base", "--batch", str(B), "--seq", str(S),
+            "--steps", str(STEPS), "--device", "cuda", "--fixed-batch"]
+    fa.reset_launches()
+    result = bert_ssgd.main(argv)
+    launches = dict(fa.LAUNCHES)
+    cfg = TransformerConfig.bert_base()
+    losses = result["losses"]
+    emit("train", config="bert-base", layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=B, seq=S, steps=STEPS, losses=losses, step_ms=result["step_ms"],
+         tokens_per_s=result["tokens_per_s"], launches=launches)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0], f"loss did not decrease: {losses}")
+    for name, n in launches.items():
+        check(n == cfg.n_layers * STEPS,
+              f"{name} launched {n} times, want {cfg.n_layers} x {STEPS} steps")
+
+    # the first step's loss again, kernel core vs plain core, same model/batch
+    model = bert_ssgd.make_model(cfg, 0, "cuda")
+    inputs, targets, mask = (t.cuda() for t in next(bert_ssgd.batches(cfg, B, S, 0)))
+
+    def plain_core(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=True)
+
+    with torch.no_grad():
+        tree = model.tree()
+        kernel_loss = bert_ssgd.mlm_loss(tree, inputs, targets, mask, cfg,
+                                         core=bert_ssgd.flash_core).item()
+        plain_loss = bert_ssgd.mlm_loss(tree, inputs, targets, mask, cfg,
+                                        core=plain_core).item()
+    emit("train_check", first_step_loss=losses[0], kernel_core_loss=kernel_loss,
+         plain_core_loss=plain_loss, rtol=RTOL)
+    check(abs(kernel_loss - plain_loss) <= RTOL * abs(plain_loss),
+          f"kernel-core loss {kernel_loss} vs plain-core loss {plain_loss}")
+    check(abs(losses[0] - kernel_loss) <= RTOL * abs(kernel_loss),
+          f"first step loss {losses[0]} vs recomputed {kernel_loss}")
+    steady = sorted(result["step_ms"][1:])
+    return {"launches": launches, "step_ms": steady[len(steady) // 2]}
+
+
+def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
+    """Where a training step's device time goes: torch.profiler over steady
+    steps of the same trainer (after the counted run, so it adds no launches
+    to it), device kernels summed by name; the rest of the wall time is the
+    device's idle share. The profiler slows the host, so the idle share is
+    also given against the unprofiled steady step of the train phase."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kungfu_tpu_torch.examples import bert_ssgd
+
+    trainer = bert_ssgd.Trainer(bert_ssgd.parse_args(
+        ["--config", "bert-base", "--batch", str(B), "--seq", str(S), "--device", "cuda",
+         "--fixed-batch"]))
+    trainer.train(2)  # warm-up: allocator, cuBLAS handles, optimizer state
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = trainer.train(steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # a user annotation (e.g. "Optimizer.step#AdamW.step") spans kernels
+        # that are counted on their own; summing it too would count twice
+        if (getattr(e, "device_type", None) != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((e.key, dev_us / 1e3 / steps, e.count // steps))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    flash = sum(r[1] for r in rows if "kf_flash::" in r[0])
+    gemm = sum(r[1] for r in rows if "gemm" in r[0].lower() or "cutlass" in r[0].lower())
+    per_step = wall_ms / steps
+    emit("profile", steps=steps, step_ms=out["step_ms"], wall_ms_per_step=per_step,
+         device_busy_ms_per_step=busy, device_idle_share=1 - busy / per_step,
+         unprofiled_step_ms=unprofiled_step_ms,
+         device_idle_share_unprofiled=1 - busy / unprofiled_step_ms,
+         flash_kernels_ms_per_step=flash, gemm_ms_per_step=gemm,
+         kernels_per_step=sum(r[2] for r in rows),
+         top=[{"kernel": k[:100], "ms_per_step": ms, "per_step": n} for k, ms, n in rows[:20]])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the card only",
+              file=sys.stderr)
+        return 2
+    from kungfu_tpu_torch.ops import _build
+    from kungfu_tpu_torch.ops import flash_attention as fa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    libs = _build.build_all(["flash_attention"])
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries={k: str(v) for k, v in libs.items()})
+
+    kern = kernel_phase(fa)
+    train = train_phase(fa)
+    profile_phase(train["step_ms"])
+
+    lines = []
+    for kname, (key, tpu_line, tpu_body) in KERNELS.items():
+        lines.append({
+            "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{TPU_SOURCE}:{tpu_line}", "tpu_source": f"{TPU_SOURCE}:{tpu_body}",
+            "launches": train["launches"][key],
+            "max_abs_err": kern["errs"][kname], "max_err": kern["errs"][kname],
+            "ms": kern["ms"][kname], "plain_ms": kern["plain_ms"][kname],
+            "bound_ms": kern["bounds"][kname]["bound_ms"],
+            "bound_by": kern["bounds"][kname]["bound_by"],
+            "library_ms": kern["library_ms"][kname],
+        })
+    print(json.dumps({"kernels": lines}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Device-plane bootstrap: one `torch.distributed` world across workers.
+
+Port of `kungfu_tpu/parallel/distributed.py`. Under kfrun a worker learns
+its place from the environment the runner sets (`KF_SELF_SPEC`,
+`KF_INIT_PEERS`, `KF_DEVICE_SLOTS`; the parsing is a private copy of
+`kungfu_tpu/runner/env.py`'s). Rank is this worker's index in the peer
+list and size the list's length. Every worker meets at rank 0's host on a
+port derived from rank 0's peer spec, so no message is exchanged before
+`init_process_group`. NCCL on the card, gloo on the CPU. Without kfrun a
+process is a world of one and no process group is formed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import zlib
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from kungfu_tpu_torch import resolve_device
+
+SELF_SPEC = "KF_SELF_SPEC"
+INIT_PEERS = "KF_INIT_PEERS"
+DEVICE_SLOTS = "KF_DEVICE_SLOTS"
+RENDEZVOUS_PORT_BASE = 20000
+RENDEZVOUS_PORT_SPAN = 20000
+
+
+def _parse_peer(spec: str) -> Tuple[str, int]:
+    host, _, port = spec.strip().rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"invalid peer spec: {spec!r}")
+    return host, int(port)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerSpec:
+    self_spec: str
+    peers: Tuple[str, ...]
+    device_slots: Tuple[int, ...] = ()
+
+    @property
+    def rank(self) -> int:
+        return self.peers.index(self.self_spec)
+
+    @property
+    def size(self) -> int:
+        return len(self.peers)
+
+    @property
+    def local_rank(self) -> int:
+        host = _parse_peer(self.self_spec)[0]
+        return [_parse_peer(p)[0] for p in self.peers[:self.rank]].count(host)
+
+
+def parse_worker_env(environ: Optional[Mapping[str, str]] = None) -> WorkerSpec:
+    """This worker's spec from the runner's environment; without
+    `KF_SELF_SPEC`, a single-process world."""
+    env = os.environ if environ is None else environ
+    me = env.get(SELF_SPEC, "")
+    if not me:
+        return WorkerSpec("127.0.0.1:10000", ("127.0.0.1:10000",))
+    _parse_peer(me)
+    peers = tuple(p.strip() for p in env.get(INIT_PEERS, me).split(",") if p.strip())
+    for p in peers:
+        _parse_peer(p)
+    if me not in peers:
+        raise ValueError(f"{SELF_SPEC}={me!r} is not in {INIT_PEERS}={peers!r}")
+    slots = tuple(int(s) for s in env.get(DEVICE_SLOTS, "").split(",") if s.strip())
+    return WorkerSpec(me, peers, slots)
+
+
+def rendezvous_address(spec: WorkerSpec) -> str:
+    """tcp://host:port of the store every worker meets at: rank 0's host,
+    a port fixed by rank 0's peer spec."""
+    host, _ = _parse_peer(spec.peers[0])
+    port = RENDEZVOUS_PORT_BASE + zlib.crc32(spec.peers[0].encode()) % RENDEZVOUS_PORT_SPAN
+    return f"tcp://{host}:{port}"
+
+
+def _pick_device(device, spec: WorkerSpec) -> torch.device:
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return device
+    if device.index is None or spec.size > 1:
+        if spec.device_slots:
+            device = torch.device("cuda", spec.device_slots[0])
+        elif spec.size > 1:
+            device = torch.device("cuda", spec.local_rank % torch.cuda.device_count())
+        else:
+            device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(device)
+    return device
+
+
+def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = None) -> torch.device:
+    """Join this worker's world and return the device it computes on
+    (None = its CUDA card). Idempotent."""
+    spec = parse_worker_env(environ)
+    device = _pick_device(device, spec)
+    if spec.size == 1 or dist.is_initialized():
+        return device
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=rendezvous_address(spec),
+        world_size=spec.size,
+        rank=spec.rank,
+    )
+    return device
+
+
+def shutdown_device_plane() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
