@@ -8,10 +8,16 @@ Phases, each printing one JSON line:
   device   card name and power limit (`nvidia-smi`), torch and CUDA versions;
   build    the kernels of csrc/ compiled by nvcc for sm_90a, one nvcc per
            source, all at once;
+  occupancy  each kernel's dynamic shared memory, active blocks per SM,
+           registers and spilled bytes per thread (CUDA runtime), hd 64/128;
   kernel   each flash-attention kernel (forward with O and LSE, dQ with
            delta, dK/dV) against its plain PyTorch version on the same inputs
            at B=8, H=12, hd=64 in bf16: S=512 causal and not, and a ragged
-           S=500; then kernel, plain and library (SDPA) times by CUDA events;
+           S=500; then times: kernel and library (SDPA forward, and SDPA's
+           backward alone for the dQ + dK/dV pair) device times by
+           torch.profiler, warm and cold (L2 flushed by a 128 MB write before
+           each call); plain versions, and each kernel's whole call with its
+           Python wrapper, by CUDA events around back-to-back calls;
   train    `examples/bert_ssgd.main` at BERT-base width (12 layers, S=512,
            batch 8) for 8 S-SGD(AdamW) steps on one fixed batch (on fresh
            batches 8 steps move the loss less than the batch-to-batch
@@ -72,6 +78,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of `fn`: the CUDA kernels it launches, summed
+    by torch.profiler (CUPTI) over `iters` calls and averaged. Host time
+    between launches is left out, so a kernel faster than its Python
+    wrapper still reads its own time. With `flush`, an add into that buffer
+    (larger than the 50 MB L2) precedes each call and pushes its inputs out
+    of the cache; the add's own kernels are left out by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_us(prof):
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)}
+
+    skip = set()
+    if flush is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.add_(1.0)
+            torch.cuda.synchronize()
+        skip = set(kernel_us(prof))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.add_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    us = {k: v for k, v in kernel_us(prof).items() if k not in skip}
+    check(bool(us), "the profiler saw no device kernel")
+    return sum(us.values()) / 1e3 / iters
 
 
 def compare(name: str, got, want) -> dict:
@@ -146,31 +188,60 @@ def kernel_phase(fa) -> dict:
     scale = 1.0 / math.sqrt(HD)
     o, lse = fa._forward_plain(q, k, v, True, scale)
     _, delta = fa._dq_plain(q, k, v, o, do, lse, True, scale)
-    ms = {
-        "flash_fwd": time_ms(lambda: fa._forward_cuda(q, k, v, True, scale)),
-        "flash_dq": time_ms(lambda: fa._dq_cuda(q, k, v, o, do, lse, True, scale)),
-        "flash_dkv": time_ms(lambda: fa._dkv_cuda(q, k, v, do, lse, delta, True, scale)),
+    calls = {
+        "flash_fwd": lambda: fa._forward_cuda(q, k, v, True, scale),
+        "flash_dq": lambda: fa._dq_cuda(q, k, v, o, do, lse, True, scale),
+        "flash_dkv": lambda: fa._dkv_cuda(q, k, v, do, lse, delta, True, scale),
     }
+    flush = torch.empty(32 * 2**20, device=dev)  # 128 MB of f32
+    ms = {name: device_ms(fn) for name, fn in calls.items()}
+    ms_cold = {name: device_ms(fn, flush) for name, fn in calls.items()}
+    call_ms = {name: time_ms(fn) for name, fn in calls.items()}  # host + device
     plain_ms = {
         "flash_fwd": time_ms(lambda: fa._forward_plain(q, k, v, True, scale), iters=5),
         "flash_dq": time_ms(lambda: fa._dq_plain(q, k, v, o, do, lse, True, scale), iters=5),
         "flash_dkv": time_ms(lambda: fa._dkv_plain(q, k, v, do, lse, delta, True, scale), iters=5),
     }
     q4, k4, v4, do4 = (t.view(B, H, S, HD) for t in (q, k, v, do))
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():  # the backward alone, on one retained forward graph
+        torch.autograd.grad(out_g, (qg, kg, vg), do4, retain_graph=True)
 
     def sdpa_fwd_bwd():
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(out, (qg, kg, vg), do4)
 
-    sdpa_fb = time_ms(sdpa_fwd_bwd)
+    sdpa = {"fwd": device_ms(sdpa_fwd), "fwd_cold": device_ms(sdpa_fwd, flush),
+            "bwd": device_ms(sdpa_bwd), "bwd_cold": device_ms(sdpa_bwd, flush),
+            "fwd_bwd": device_ms(sdpa_fwd_bwd)}
     emit("kernel_times", shape=[B, H, S, HD], causal=True, dtype="bfloat16",
-         kernel_ms=ms, plain_ms=plain_ms, sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fb,
-         kernels_fwd_bwd_ms=sum(ms.values()))
-    return {"errs": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": {"flash_fwd": sdpa_fwd, "flash_dq": None, "flash_dkv": None},
+         kernel_ms=ms, kernel_ms_cold_l2=ms_cold, call_ms_back_to_back=call_ms,
+         plain_ms=plain_ms, sdpa_fwd_ms=sdpa["fwd"], sdpa_fwd_ms_cold_l2=sdpa["fwd_cold"],
+         sdpa_bwd_ms=sdpa["bwd"], sdpa_bwd_ms_cold_l2=sdpa["bwd_cold"],
+         sdpa_fwd_bwd_ms=sdpa["fwd_bwd"], kernels_fwd_bwd_ms=sum(ms.values()),
+         kernels_bwd_ms=ms["flash_dq"] + ms["flash_dkv"])
+    return {"errs": errs, "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms,
+            "library_ms": {"flash_fwd": sdpa["fwd"], "flash_dq": None, "flash_dkv": None},
+            "library_pair_ms": {"flash_fwd": None, "flash_dq": sdpa["bwd"],
+                                "flash_dkv": sdpa["bwd"]},
             "bounds": bounds(B * H, S, HD, True)}
+
+
+def occupancy_phase(fa) -> dict:
+    import torch
+
+    out = {}
+    for hd in (64, 128):
+        occ = {name: fa.occupancy(name, hd, torch.bfloat16) for name in KERNELS}
+        emit("occupancy", hd=hd, dtype="bfloat16", kernels=occ)
+        out[hd] = occ
+    return out[HD]
 
 
 def train_phase(fa) -> dict:
@@ -259,7 +330,8 @@ def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
          device_busy_ms_per_step=busy, device_idle_share=1 - busy / per_step,
          unprofiled_step_ms=unprofiled_step_ms,
          device_idle_share_unprofiled=1 - busy / unprofiled_step_ms,
-         flash_kernels_ms_per_step=flash, gemm_ms_per_step=gemm,
+         flash_kernels_ms_per_step=flash, flash_share_of_busy=flash / busy,
+         gemm_ms_per_step=gemm,
          kernels_per_step=sum(r[2] for r in rows),
          top=[{"kernel": k[:100], "ms_per_step": ms, "per_step": n} for k, ms, n in rows[:20]])
 
@@ -288,6 +360,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v) for k, v in libs.items()})
 
+    occ = occupancy_phase(fa)
     kern = kernel_phase(fa)
     train = train_phase(fa)
     profile_phase(train["step_ms"])
@@ -299,10 +372,15 @@ def main() -> int:
             "replaces": f"{TPU_SOURCE}:{tpu_line}", "tpu_source": f"{TPU_SOURCE}:{tpu_body}",
             "launches": train["launches"][key],
             "max_abs_err": kern["errs"][kname], "max_err": kern["errs"][kname],
-            "ms": kern["ms"][kname], "plain_ms": kern["plain_ms"][kname],
+            "ms": kern["ms"][kname], "ms_cold_l2": kern["ms_cold"][kname],
+            "plain_ms": kern["plain_ms"][kname],
             "bound_ms": kern["bounds"][kname]["bound_ms"],
             "bound_by": kern["bounds"][kname]["bound_by"],
             "library_ms": kern["library_ms"][kname],
+            # SDPA's backward alone computes dQ, dK and dV: the pair's yardstick
+            "library_pair_ms": kern["library_pair_ms"][kname],
+            "smem_bytes": occ[kname]["smem_bytes"],
+            "blocks_per_sm": occ[kname]["blocks_per_sm"],
         })
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

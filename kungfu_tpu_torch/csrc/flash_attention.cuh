@@ -1,5 +1,6 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a):
-// tile geometry, shared-memory carving, tile loads, warp reductions and
+// Shared pieces of the flash-attention kernels for Hopper (sm_90a): tile
+// geometry and type conversions for all three; for the simple design of the
+// dQ kernel, shared-memory carving, synchronous tile loads, a warp sum and
 // one 16x16 tensor-core product (WMMA, bf16/fp16 in, f32 accumulate).
 #pragma once
 
@@ -17,7 +18,7 @@ using namespace nvcuda;
 
 constexpr int BM = 64;        // query rows per tile
 constexpr int BN = 64;        // key rows per tile
-constexpr int NWARPS = 4;     // each warp owns 16 rows of a 64-row tile
+constexpr int NWARPS = 4;     // dQ: each warp owns 16 rows of a 64-row tile
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;  // the JAX kernel's mask value
 constexpr int PAD16 = 8;  // 16-bit rows padded by 16 bytes (bank spread)
@@ -57,12 +58,6 @@ struct Carve {
     return p;
   }
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

@@ -189,8 +189,26 @@ def _lib():
             fn.restype = _I
         lib.kf_flash_error_string.argtypes = [_I]
         lib.kf_flash_error_string.restype = ctypes.c_char_p
+        lib.kf_flash_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.kf_flash_occupancy.restype = _I
         lib._kf_bound = True
     return lib
+
+
+_KERNEL_CODE = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
+
+
+def occupancy(name: str, hd: int = 64, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Launch resources of one kernel on the current card: dynamic shared
+    memory per block, active blocks per SM, registers and spilled (local)
+    bytes per thread, as the CUDA runtime reports them."""
+    out = (_I * 4)()
+    rc = _lib().kf_flash_occupancy(_KERNEL_CODE[name], hd, _DTYPE_CODE[dtype], out)
+    if rc != 0:
+        msg = _lib().kf_flash_error_string(rc).decode()
+        raise RuntimeError(f"{name} occupancy query failed: {msg} (cuda error {rc})")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1], "registers": out[2],
+            "local_bytes": out[3]}
 
 
 def _check(name: str, like: torch.Tensor, **tensors) -> None:
