@@ -27,14 +27,12 @@
 // Neither roof decides: a query (key) tile has only 1 to 8 tiles to loop
 // over, and each tile is a chain of dependent products and softmax work.
 //
-// flash_fwd_kernel and flash_dkv_kernel are warp-specialised (hopper.cuh):
-// one producer warp keeps a 2-stage shared-memory ring full by TMA, with
-// mbarriers for "full" and "empty", and one consumer warpgroup runs wgmma on
-// the tiles with every score, probability and sum in registers. Several
-// blocks share an SM (4 forward, 2 dK/dV at hd = 64), and their tiles
-// interleave. Their notes are at each kernel. flash_dq_kernel keeps the
-// first, simple design: 4 warps, WMMA 16x16x16 with scores and the
-// accumulator in shared memory, and loads that do not overlap compute.
+// All three are warp-specialised (hopper.cuh): one producer warp keeps a
+// 2-stage shared-memory ring full by TMA, with mbarriers for "full" and
+// "empty", and one consumer warpgroup runs wgmma on the tiles with every
+// score, probability and sum in registers. Several blocks share an SM (4
+// forward, 3 dQ, 2 dK/dV at hd = 64), and their tiles interleave. Their
+// notes are at each kernel.
 //
 // What is still left on the table. Tried on the H100 and not kept, because
 // none was faster at the slice's shape: issuing the next tile's products
@@ -43,8 +41,8 @@
 // and two warpgroups sharing each K/V tile (half the L2 traffic); the blocks
 // that share an SM already overlap one another. Not tried: 128-key tiles
 // (half the per-tile barrier, shuffle and rescale work, but twice the score
-// registers), stores of O, dK and dV through shared memory and TMA instead
-// of 4-byte stores from registers, and the dQ kernel.
+// registers), and stores of O, dQ, dK and dV through shared memory and TMA
+// instead of 4-byte stores from registers.
 #include "flash_attention.cuh"
 #include "hopper.cuh"
 
@@ -255,100 +253,207 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
     }
 }
 
-template <typename T, int HD> struct DqSmem {
-  T *q, *dout, *k, *v, *ds;
-  float *s, *dp, *acc, *lse, *delta;
-  size_t bytes;
-  __host__ __device__ explicit DqSmem(uintptr_t base) {
-    Carve c{base, 0};
-    q = c.take<T>(BM * Ld<HD>::T16);
-    dout = c.take<T>(BM * Ld<HD>::T16);
-    k = c.take<T>(BN * Ld<HD>::T16);
-    v = c.take<T>(BN * Ld<HD>::T16);
-    s = c.take<float>(BM * Ld<HD>::S);
-    dp = c.take<float>(BM * Ld<HD>::S);
-    ds = c.take<T>(BM * Ld<HD>::P);
-    acc = c.take<float>(BM * Ld<HD>::ACC);
-    lse = c.take<float>(BM);
-    delta = c.take<float>(BM);
-    bytes = c.off;
-  }
+template <int HD> struct DqLayout {
+  static constexpr int TILE = HD / BOX * BOX_BYTES;
+  static constexpr int Q = 0, DO = TILE, O = 2 * TILE;
+  static constexpr int KV = 3 * TILE;  // stage s: K at KV + 2 * TILE * s, V after it
+  static constexpr int DELTA = KV + STAGES * 2 * TILE;  // 64 f32
+  static constexpr int BAR = DELTA + 4 * BM;  // Q/dO/O, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// dq = sum_k ds k * scale with p = exp(q k^T * scale - lse),
-// ds = p * (dO v^T - delta). delta = rowsum(dO * O) is computed here, once
-// per query row, and written out for the dK/dV kernel (the JAX package
-// leaves it to a separate XLA pass).
-template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ o,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                T* __restrict__ dq, float* __restrict__ delta, int S,
-                int causal, float scale) {
-  extern __shared__ __align__(128) char smem_raw[];
-  DqSmem<T, HD> sm(reinterpret_cast<uintptr_t>(smem_raw));
-  constexpr int LT = Ld<HD>::T16, LS = Ld<HD>::S, LP = Ld<HD>::P, LA = Ld<HD>::ACC;
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
-  const size_t base = (size_t)bh * S * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-
-  load_tile<T, BM, HD>(sm.q, q + base, q0, S);
-  load_tile<T, BM, HD>(sm.dout, dout + base, q0, S);
-  for (int i = threadIdx.x; i < BM * LA; i += NTHREADS) sm.acc[i] = 0.0f;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, qpos = q0 + r;
-    float dsum = 0.0f;
-    if (qpos < S)
-      for (int d = lane; d < HD; d += 32)
-        dsum += to_f(dout[base + (size_t)qpos * HD + d]) *
-                to_f(o[base + (size_t)qpos * HD + d]);
-    dsum = warp_sum(dsum);
-    if (lane == 0) {
-      sm.delta[r] = dsum;
-      sm.lse[r] = qpos < S ? lse[(size_t)bh * S + qpos] : 0.0f;
-      if (qpos < S) delta[(size_t)bh * S + qpos] = dsum;
-    }
-  }
-  const int n_all = (S + BN - 1) / BN;
-  const int n_kt = causal ? min(n_all, (q0 + BM - 1) / BN + 1) : n_all;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<T, BN, HD>(sm.k, k + base, k0, S);
-    load_tile<T, BN, HD>(sm.v, v + base, k0, S);
-    __syncthreads();
-    for (int j = 0; j < BN; j += 16) {
-      mma16<T, wmma::row_major, wmma::col_major, HD>(
-          sm.s + r0 * LS + j, LS, sm.q + r0 * LT, LT, sm.k + j * LT, LT, false);
-      mma16<T, wmma::row_major, wmma::col_major, HD>(
-          sm.dp + r0 * LS + j, LS, sm.dout + r0 * LT, LT, sm.v + j * LT, LT, false);
-    }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr, qpos = q0 + r;
+// Sum of the products of eight 16-bit pairs, in f32.
+template <typename T>
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t* x = &a.x;
+  const uint32_t* y = &b.x;
+  float s = 0.0f;
 #pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const int col = lane + 32 * c, kpos = k0 + col;
-        const bool live = qpos < S && kpos < S && (!causal || kpos <= qpos);
-        const float p = live ? expf(sm.s[r * LS + col] * scale - sm.lse[r]) : 0.0f;
-        sm.ds[r * LP + col] = from_f<T>(p * (sm.dp[r * LS + col] - sm.delta[r]));
+  for (int j = 0; j < 4; ++j) {
+    const float2 u = unpack2<T>(x[j]), w = unpack2<T>(y[j]);
+    s = fmaf(u.x, w.x, fmaf(u.y, w.y, s));
+  }
+  return s;
+}
+
+// dq = sum_k ds k * scale for one 64-row query tile, with p = exp(q k^T *
+// scale - lse) and ds = p * (dO v^T - delta), as _dq_kernel computes it
+// (kungfu_tpu/ops/flash_attention.py:228-272, pallas_call at :368). delta =
+// rowsum(dO * O) is computed here, once per query row, and written out for
+// the dK/dV kernel (the JAX package leaves it to a separate XLA pass).
+//
+// Bound at the slice's shape: bytes (11.4 us), but, as in the other two, the
+// latency of each key tile limits it: three products, the third dependent
+// on the first two. Design: the forward's block, so that several blocks
+// share an SM and overlap one another's chains. Q, dO and O arrive once by
+// TMA, K/V tiles through the ring; delta, needed before the first dS, is
+// formed in the prologue as a rowsum over the same swizzled positions of
+// the dO and O tiles in shared memory (the 128-byte swizzle permutes 16-byte
+// chunks inside a row alike in both), two threads a row with 16-byte
+// loads, finished by one shuffle and a barrier of the consumer warpgroup
+// alone. S = Q K^T and dP = dO V^T are wgmmas from shared memory into
+// registers in one group; P and dS are computed in registers (exp2 with
+// the scale folded into one FMA; only the diagonal and the ragged last tile
+// are masked) and dS becomes the register A operand of dQ += dS K, with K
+// read from shared memory as the MN-major B operand. dQ stays in f32
+// registers from the first tile to the epilogue. Query tiles run heaviest
+// first. About 58 KB of shared memory at hd = 64.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HTHREADS, HD == 64 ? 3 : 1)
+flash_dq_kernel(__grid_constant__ const CUtensorMap tq,
+                __grid_constant__ const CUtensorMap tk,
+                __grid_constant__ const CUtensorMap tv,
+                __grid_constant__ const CUtensorMap to,
+                __grid_constant__ const CUtensorMap tdo,
+                const float* __restrict__ lse, T* __restrict__ dq,
+                float* __restrict__ delta, int S, int causal, float scale,
+                float scale_log2) {
+  using L = DqLayout<HD>;
+  constexpr int NH = HD / BOX;
+  extern __shared__ __align__(1024) char smem_tiles[];
+  char* sm = align1024(smem_tiles);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, q0 = qt * BM;
+  const int n_all = (S + BN - 1) / BN;
+  const int n_kt = causal ? min(n_all, qt + 1) : n_all;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 3 * L::TILE);
+      for (int h = 0; h < NH; ++h) {
+        tma_load_3d(sm + L::Q + h * BOX_BYTES, &tq, qbar, h * BOX, q0, bh);
+        tma_load_3d(sm + L::DO + h * BOX_BYTES, &tdo, qbar, h * BOX, q0, bh);
+        tma_load_3d(sm + L::O + h * BOX_BYTES, &to, qbar, h * BOX, q0, bh);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        char* kv = sm + L::KV + s * 2 * L::TILE;
+        mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
+        for (int h = 0; h < NH; ++h) {
+          tma_load_3d(kv + h * BOX_BYTES, &tk, &full[s], h * BOX, kt * BN, bh);
+          tma_load_3d(kv + L::TILE + h * BOX_BYTES, &tv, &full[s], h * BOX, kt * BN, bh);
+        }
       }
     }
+    return;
+  }
+
+  // consumer warpgroup; this thread holds rows r and r + 8 of the tile
+  const int g = lane / 4, t = lane % 4, r = warp * 16 + g;
+  const size_t base = (size_t)bh * S;
+  float ls[2];  // lse * log2(e) of rows r and r + 8; 0 past S
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r + 8 * j;
+    ls[j] = row < S ? lse[base + row] * LOG2E : 0.0f;
+  }
+  const char* qs = sm + L::Q;
+  const char* dos = sm + L::DO;
+  float* dl = reinterpret_cast<float*>(sm + L::DELTA);
+  mbar_wait(qbar, 0);
+
+  {  // delta: thread pair (2e, 2e + 1) sums row e, 4 * NH chunks of 16 bytes each
+    const int e = threadIdx.x / 2, c0 = (threadIdx.x % 2) * 4;
+    const char* os = sm + L::O;
+    float d = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4 * NH; ++i) {
+      const int off = (i / 4) * BOX_BYTES + e * 128 + (c0 + i % 4) * 16;
+      d += dot8<T>(*reinterpret_cast<const uint4*>(dos + off),
+                   *reinterpret_cast<const uint4*>(os + off));
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (c0 == 0) {
+      dl[e] = d;
+      if (q0 + e < S) delta[base + q0 + e] = d;
+    }
+  }
+  named_bar_sync(1, 128);
+  const float dr[2] = {dl[r], dl[r + 8]};
+
+  float acc[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.0f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % STAGES, k0 = kt * BN;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const char* ks = sm + L::KV + s * 2 * L::TILE;
+    const char* vs = ks + L::TILE;
+
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      wgmma_ss<T>(sc, desc_k(qs + off), desc_k(ks + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      wgmma_ss<T>(dp, desc_k(dos + off), desc_k(vs + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    const bool edge = (causal && kt == qt) || k0 + BN > S;
+    float ds[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float p = fast_exp2(fmaf(sc[i], scale_log2, -ls[(i / 2) % 2]));
+      if (edge) {
+        const int kpos = k0 + 2 * t + acc_col(i), qpos = q0 + r + acc_row(i);
+        if (kpos >= S || (causal && kpos > qpos)) p = 0.0f;
+      }
+      ds[i] = p * (dp[i] - dr[(i / 2) % 2]);
+    }
+    uint32_t da[4][4];
+    acc_to_a<T>(ds, da);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        wgmma_rs<T>(acc[h], da[kk], desc_mn(ks + h * BOX_BYTES + kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
     __syncwarp();
-    for (int j = 0; j < HD; j += 16)
-      mma16<T, wmma::row_major, wmma::row_major, BN>(
-          sm.acc + r0 * LA + j, LA, sm.ds + r0 * LP, LP, sm.k + j, LT, true);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, qpos = q0 + r;
-    if (qpos >= S) break;
-    for (int d = lane; d < HD; d += 32)
-      dq[base + (size_t)qpos * HD + d] = from_f<T>(sm.acc[r * LA + d] * scale);
-  }
+
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = q0 + r + acc_row(i);
+      if (row < S) {
+        const int col = h * BOX + 2 * t + acc_col(i);
+        *reinterpret_cast<uint32_t*>(dq + (base + row) * HD + col) =
+            pack2<T>(acc[h][i] * scale, acc[h][i + 1] * scale);
+      }
+    }
 }
 
 template <int HD> struct DkvLayout {
@@ -546,6 +651,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   if (n_qt > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   cudaError_t e;
+  if ((e = bind_device_of(q)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tq, q, BH, S, HD)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tk, k, BH, S, HD)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tv, v, BH, S, HD)) != cudaSuccess) return e;
@@ -560,13 +666,21 @@ template <typename T, int HD>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* dqo, void* delta, int BH,
                int S, int causal, float scale, cudaStream_t st) {
-  const size_t smem = DqSmem<T, HD>(0).bytes;
-  cudaError_t e = prepare(flash_dq_kernel<T, HD>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + BM - 1) / BM, BH);
-  flash_dq_kernel<T, HD><<<grid, NTHREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const float*)lse, (T*)dqo, (float*)delta, S, causal, scale);
+  const int n_qt = (S + BM - 1) / BM;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to, tdo;
+  cudaError_t e;
+  if ((e = bind_device_of(q)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&tq, q, BH, S, HD)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&tk, k, BH, S, HD)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&tv, v, BH, S, HD)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&to, o, BH, S, HD)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&tdo, dout, BH, S, HD)) != cudaSuccess) return e;
+  const size_t smem = DqLayout<HD>::BYTES;
+  if ((e = prepare(flash_dq_kernel<T, HD>, smem)) != cudaSuccess) return e;
+  flash_dq_kernel<T, HD><<<dim3(BH, n_qt), HTHREADS, smem, st>>>(
+      tq, tk, tv, to, tdo, (const float*)lse, (T*)dqo, (float*)delta, S, causal, scale,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -578,6 +692,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   if (n_kt > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e;
+  if ((e = bind_device_of(q)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tq, q, BH, S, HD)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tk, k, BH, S, HD)) != cudaSuccess) return e;
   if ((e = make_map<T>(&tv, v, BH, S, HD)) != cudaSuccess) return e;
@@ -609,7 +724,7 @@ cudaError_t occupancy(int which, int* out) {
   if (which == 0)
     return occupancy_of(flash_fwd_kernel<T, HD>, HTHREADS, FwdLayout<HD>::BYTES, out);
   if (which == 1)
-    return occupancy_of(flash_dq_kernel<T, HD>, NTHREADS, DqSmem<T, HD>(0).bytes, out);
+    return occupancy_of(flash_dq_kernel<T, HD>, HTHREADS, DqLayout<HD>::BYTES, out);
   if (which == 2)
     return occupancy_of(flash_dkv_kernel<T, HD>, HTHREADS, DkvLayout<HD>::BYTES, out);
   return cudaErrorInvalidValue;

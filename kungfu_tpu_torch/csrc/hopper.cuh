@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
-// TMA tile loads through a 3-D tensor map, wgmma shared-memory descriptors
-// for 128-byte swizzled tiles, and the m64n64k16 warpgroup product with A
-// from shared memory (SS) or from registers (RS).
+// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers
+// and named barriers, TMA tile loads through a 3-D tensor map, wgmma
+// shared-memory descriptors for 128-byte swizzled tiles, and the m64n64k16
+// warpgroup product with A from shared memory (SS) or from registers (RS).
 //
 // Tile convention: a 64-row tile of 16-bit values with a row of 64 elements
 // (128 bytes) is one TMA box with CU_TENSOR_MAP_SWIZZLE_128B, 8 KB, based at
@@ -33,6 +33,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) among the first `n` threads of the
+// block, so that a consumer warpgroup can wait for itself alone.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- mbarrier -------------------------------------------------------------
@@ -176,6 +182,15 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// The inverse of pack2: two 16-bit values of one 32-bit word as floats.
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t u);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
 // The m64n64 accumulator of one thread (lane = 4g + t of warp w) holds row
 // 16w + g + 8*((i/2)%2), column 8*(i/4) + 2t + i%2 in d[i]. Columns
 // [16kk, 16kk + 16) of it are, rounded to 16 bits, exactly the register A
@@ -199,21 +214,37 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// A function of libcuda by name, or nullptr, found through the runtime.
+inline void* libcuda_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+  return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
+  if (fn == nullptr) fn = (EncodeTiledFn)libcuda_fn("cuTensorMapEncodeTiled");
   return fn;
+}
+
+// Makes the device that holds `ptr` current on this host thread if the thread
+// has no current context. A thread that has not used CUDA yet (autograd's
+// backward thread, say) has none, and cuTensorMapEncodeTiled refuses to
+// encode without one. The check is a thread-local read in libcuda.
+inline cudaError_t bind_device_of(const void* ptr) {
+  typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+  static CtxGetCurrentFn current = (CtxGetCurrentFn)libcuda_fn("cuCtxGetCurrent");
+  CUcontext ctx = nullptr;
+  if (current != nullptr && current(&ctx) == CUDA_SUCCESS && ctx != nullptr)
+    return cudaSuccess;
+  cudaPointerAttributes a;
+  cudaError_t e = cudaPointerGetAttributes(&a, ptr);
+  return e != cudaSuccess ? e : cudaSetDevice(a.device);
 }
 
 // Tensor map of a contiguous (BH, S, HD) 16-bit tensor as (HD, S, BH) with

@@ -8,6 +8,8 @@ the suite's JAX conftest:
 Without a card every test skips: the kernels have no CPU mode.
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -71,16 +73,47 @@ def test_cuda_kernels_are_deterministic(hd):
 
 
 @pytest.mark.cuda
+def test_cuda_kernels_launch_from_a_fresh_thread():
+    """A host thread that has not used CUDA yet (as autograd's backward
+    thread may be) has no current context; the launchers bind the device
+    of their tensors before they encode the TMA tensor maps."""
+    _need_card()
+    q, k, v, do = _inputs(2, 100, 64, torch.bfloat16, seed=3)
+    sc = 64 ** -0.5
+    o, lse = tfa._forward_cuda(q, k, v, True, sc)
+    _, delta = tfa._dq_cuda(q, k, v, o, do, lse, True, sc)
+    calls = [lambda: tfa._forward_cuda(q, k, v, True, sc),
+             lambda: tfa._dq_cuda(q, k, v, o, do, lse, True, sc),
+             lambda: tfa._dkv_cuda(q, k, v, do, lse, delta, True, sc)]
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except RuntimeError as e:
+            errors.append(e)
+
+    for fn in calls:
+        t = threading.Thread(target=run, args=(fn,))
+        t.start()
+        t.join()
+    torch.cuda.synchronize()
+    assert errors == []
+
+
+@pytest.mark.cuda
 def test_cuda_occupancy_of_the_redesigned_kernels():
     """At hd=64 the TMA/wgmma kernels use less shared memory than the
-    simple design's carvings (70.5 KB forward, 122.5 KB dK/dV) and dK/dV
-    runs at least two blocks per SM, without spilling."""
+    simple design's carvings (70.5 KB forward, 96.5 KB dQ, 122.5 KB dK/dV),
+    dQ and dK/dV run at least two blocks per SM, and none spills."""
     _need_card()
     fwd = tfa.occupancy("flash_fwd", 64)
+    dq = tfa.occupancy("flash_dq", 64)
     dkv = tfa.occupancy("flash_dkv", 64)
     assert fwd["smem_bytes"] < 70.5 * 1024 and dkv["smem_bytes"] < 122.5 * 1024
-    assert dkv["blocks_per_sm"] >= 2
-    assert fwd["local_bytes"] == 0 and dkv["local_bytes"] == 0
+    assert dq["smem_bytes"] < 96.5 * 1024
+    assert dq["blocks_per_sm"] >= 2 and dkv["blocks_per_sm"] >= 2
+    assert fwd["local_bytes"] == 0 and dq["local_bytes"] == 0 and dkv["local_bytes"] == 0
 
 
 @pytest.mark.cuda
