@@ -24,7 +24,21 @@ Phases, each printing one JSON line:
            noise) as a world of one, with the
            launch counters zeroed just before and read just after; the
            first step's loss is then recomputed with the plain attention
-           core on the card and compared.
+           core on the card and compared;
+  profile  where a steady training step's device time goes (torch.profiler);
+  ring     the sequence-parallel path (ring attention through the same
+           kernels) as two gloo worker processes sharing card 0, K/V
+           staged through pinned host buffers: the ring core's O, dQ, dK, dV
+           at B=8, H=12, S=512 (causal and not) against the plain ring (the
+           einsum oracle, on the card) on the same inputs, and against the
+           single-process kernel path; then BERT-base over a dp 1 x sp 2 mesh for 6
+           S-SGD(AdamW) steps on one fixed causal-LM batch of 8 x 512, its
+           first loss against the dense flash path in one process (within
+           1e-4 relative), each
+           rank's launches (rank r runs 12 (r + 1) of each kernel a step),
+           step times and their split (ring shifts, gradient average, the
+           rest), the card's idle share, the ring core's device times and
+           one K/V shift's host time.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -35,14 +49,25 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 B, H, S, HD = 8, 12, 512, 64
 S_RAGGED = 500
 STEPS = 8
+RING_STEPS = 6
+RING_RANKS = 2
+RING_DEADLINE_S = 300
+RING_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ring"
 RTOL = ATOL = 2e-2  # bf16 parity, as tests/test_flash_attention.py holds it
+# the ring's first loss against the dense flash path's: at random init the
+# loss is near ln(vocab) whatever attention does, so the limit is set from
+# the readings on the H100 (relative gap 6.2e-6; PERF.md), not from RTOL
+RING_LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 KERNEL_SOURCE = "kungfu_tpu_torch/csrc/flash_attention.cu"
@@ -80,13 +105,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of `fn`: the CUDA kernels it launches, summed
-    by torch.profiler (CUPTI) over `iters` calls and averaged. Host time
-    between launches is left out, so a kernel faster than its Python
-    wrapper still reads its own time. With `flush`, an add into that buffer
-    (larger than the 50 MB L2) precedes each call and pushes its inputs out
-    of the cache; the add's own kernels are left out by name."""
+def device_us_by_kernel(fn, flush=None, iters: int = 20, warmup: int = 3) -> dict:
+    """Device time of one call of `fn` by kernel name (us): the CUDA
+    kernels and copies it launches, summed by torch.profiler (CUPTI) over
+    `iters` calls and averaged. Host time between launches is left out, so
+    a kernel faster than its Python wrapper still reads its own time. With
+    `flush`, an add into that buffer (larger than the 50 MB L2) precedes
+    each call and pushes its inputs out of the cache; the add's own kernels
+    are left out by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -111,9 +137,14 @@ def device_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
                 flush.add_(1.0)
             fn()
         torch.cuda.synchronize()
-    us = {k: v for k, v in kernel_us(prof).items() if k not in skip}
+    us = {k: v / iters for k, v in kernel_us(prof).items() if k not in skip}
     check(bool(us), "the profiler saw no device kernel")
-    return sum(us.values()) / 1e3 / iters
+    return us
+
+
+def device_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of `fn` (ms): `device_us_by_kernel` summed."""
+    return sum(device_us_by_kernel(fn, flush, iters, warmup).values()) / 1e3
 
 
 def compare(name: str, got, want) -> dict:
@@ -336,6 +367,242 @@ def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
          top=[{"kernel": k[:100], "ms_per_step": ms, "per_step": n} for k, ms, n in rows[:20]])
 
 
+def _ring_rank(rank: int, peers) -> dict:
+    """One rank of the ring phase, through the port's entry points as a
+    kfrun worker would use them."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch.examples import bert_ssgd
+    from kungfu_tpu_torch.initializer import broadcast_variables
+    from kungfu_tpu_torch.models import transformer as tr
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.ops import flash_attention as fa
+    from kungfu_tpu_torch.ops.ring_attention import (ring_self_attention,
+                                                     ring_self_attention_plain)
+    from kungfu_tpu_torch.optimizers.core import synchronous_sgd
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
+    from kungfu_tpu_torch.parallel.dp import make_train_step, shard_batch
+    from kungfu_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize_device_plane(backend="gloo")
+    session = make_mesh(device, shape={"dp": 1, "sp": RING_RANKS})
+    group, idx = session.axis_group("sp"), session.axis_index("sp")
+    out = {"rank": rank, "sp_index": idx, "device": str(device),
+           "backend": session.describe()}
+    Sl = S // RING_RANKS
+    part = slice(idx * Sl, (idx + 1) * Sl)
+
+    # (a) the core, forward and backward (the backward first runs here, on
+    # autograd's thread), gathered on rank 0. The kernel ring is held against
+    # the plain ring (its einsum oracle) on the same inputs at the ring's own
+    # shapes, and then against the one-process kernels on the whole sequence
+    def ring_outputs(core, q, k, v, do, causal):
+        mine = [t[:, :, part].clone().requires_grad_() for t in (q, k, v)]
+        o = core(*mine, group, causal=causal)
+        got = [o, *torch.autograd.grad(o, mine, do[:, :, part])]
+        return [collective.all_gather(t.detach().cpu(), axis=2, tiled=True, group=group)
+                for t in got]
+
+    errs = {}
+    for causal in (True, False):
+        gen = torch.Generator(device=device).manual_seed(0)
+        q, k, v, do = (torch.randn(B, H, S, HD, device=device, dtype=torch.bfloat16,
+                                   generator=gen) for _ in range(4))
+        got = ring_outputs(ring_self_attention, q, k, v, do, causal)
+        plain = ring_outputs(ring_self_attention_plain, q, k, v, do, causal)
+        if rank == 0:
+            full = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = fa.flash_attention(*full, causal=causal)
+            one = [ref, *torch.autograd.grad(ref, full, do)]
+            mode = "causal" if causal else "full"
+            names = ("O", "dQ", "dK", "dV")
+            errs[mode] = {
+                "vs_plain_ring": {n: compare(f"ring {n} vs plain ring (causal={causal})", g, w)
+                                  for n, g, w in zip(names, got, plain)},
+                "vs_one_process": {n: compare(f"ring {n} vs one process (causal={causal})",
+                                              g, w.cpu())
+                                   for n, g, w in zip(names, got, one)}}
+    out["core_check"] = errs
+
+    # the core's device time at the training shape, and one K/V shift's host time
+    gen = torch.Generator(device=device).manual_seed(1)
+    q, k, v, do = (torch.randn(B, H, Sl, HD, device=device, dtype=torch.bfloat16,
+                               generator=gen) for _ in range(4))
+    with torch.no_grad():
+        fwd = device_us_by_kernel(lambda: ring_self_attention(q, k, v, group))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = ring_self_attention(*qkv, group)
+    bwd = device_us_by_kernel(lambda: torch.autograd.grad(o, qkv, do, retain_graph=True))
+
+    def split(us):
+        flash = sum(t for name, t in us.items() if "kf_flash::" in name)
+        copies = sum(t for name, t in us.items() if "memcpy" in name.lower())
+        return {"ms": sum(us.values()) / 1e3, "flash_kernels_ms": flash / 1e3,
+                "host_copies_ms": copies / 1e3}
+
+    out["core_fwd"], out["core_bwd"] = split(fwd), split(bwd)
+    kv = torch.stack([q.reshape(B * H, Sl, HD), k.reshape(B * H, Sl, HD)])
+    shift_ms = []
+    for _ in range(12):
+        session.barrier()
+        t0 = time.perf_counter()
+        collective.rotate([kv], group)
+        shift_ms.append((time.perf_counter() - t0) * 1e3)
+    out["kv_shift_host_ms"] = sorted(shift_ms[2:])[len(shift_ms[2:]) // 2]
+    out["kv_shift_bytes"] = kv.numel() * kv.element_size()
+    if rank == 0:  # the same work in one process on the whole sequence
+        qf, kf, vf, dof = (torch.randn(B, H, S, HD, device=device, dtype=torch.bfloat16,
+                                       generator=gen) for _ in range(4))
+        with torch.no_grad():
+            out["dense_fwd_ms"] = device_ms(lambda: fa.flash_attention(qf, kf, vf))
+        full = [t.clone().requires_grad_() for t in (qf, kf, vf)]
+        of = fa.flash_attention(*full)
+        out["dense_bwd_ms"] = device_ms(
+            lambda: torch.autograd.grad(of, full, dof, retain_graph=True))
+    session.barrier()
+
+    # BERT-base over dp 1 x sp 2, one fixed causal-LM batch of 8 x 512
+    cfg = tr.TransformerConfig.bert_base()
+    model = broadcast_variables(
+        tr.init_transformer(cfg, torch.Generator().manual_seed(0), device), session)
+    _, tokens, _ = bert_ssgd.synthetic_batch(np.random.default_rng(1234), cfg, B, S + 1)
+    tokens = torch.from_numpy(tokens)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if rank == 0:  # (b)'s yardstick: the dense flash path, full batch, one process
+        with torch.no_grad():
+            out["dense_first_loss"] = tr.transformer_loss(
+                model.tree(), (inputs.to(device), targets.to(device)), cfg,
+                core=bert_ssgd.flash_core).item()
+    opt = synchronous_sgd(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01), session)
+    step = make_train_step(tr.make_ring_transformer_loss(cfg, session, core=ring_self_attention),
+                           opt, session)
+    batch = shard_batch((inputs, targets), session, axes=("dp", "sp"))
+    session.barrier()
+    losses, step_ms = [], []
+    fa.reset_launches()
+    for _ in range(RING_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))  # waits for the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = dict(fa.LAUNCHES)
+    steady = sorted(step_ms[1:])
+
+    # where a step's host time goes: two more steps, after the count was
+    # read, with the ring's shifts and the gradient average timed from a
+    # drained stream (so waiting on queued kernels counts as the rest)
+    spent = {"ring_shifts_ms": 0.0, "grad_average_ms": 0.0}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += (time.perf_counter() - t) * 1e3
+        return run
+
+    rotate = collective.rotate
+    collective.rotate = timed(rotate, "ring_shifts_ms")
+    opt.average_gradients = timed(opt.average_gradients, "grad_average_ms")
+    try:
+        t = time.perf_counter()
+        for _ in range(2):
+            float(step(model, batch))
+        total = (time.perf_counter() - t) * 1e3 / 2
+    finally:
+        collective.rotate = rotate
+        del opt.average_gradients  # the class's own method again
+    split = {k: v / 2 for k, v in spent.items()}
+    out["step_split"] = {"step_ms": total, **split, "rest_ms": total - sum(split.values())}
+    # this rank's device time in a step (kernels and copies, profiled)
+    out["step_device_busy_ms"] = device_ms(lambda: float(step(model, batch)), iters=2, warmup=0)
+    out.update(losses=losses, step_ms=step_ms, steady_step_ms=steady[len(steady) // 2],
+               tokens_per_s=B * S / (steady[len(steady) // 2] / 1e3),
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 2**30)
+    return out
+
+
+def ring_worker(rank: int, peers) -> None:
+    from kungfu_tpu_torch.parallel.distributed import shutdown_device_plane
+
+    try:
+        out = _ring_rank(rank, peers)
+        (RING_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        shutdown_device_plane()
+
+
+def ring_phase() -> dict:
+    """The sequence-parallel path on two worker processes that share card 0
+    through gloo (NCCL refuses two ranks on one card); the parent checks
+    what they wrote. Returns each kernel's launches per rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from kungfu_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    RING_OUT.mkdir(parents=True, exist_ok=True)
+    for f in RING_OUT.glob("rank*.json"):
+        f.unlink()
+    socks = [socket.socket() for _ in range(RING_RANKS)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    ctx = mp.start_processes(ring_worker, args=(peers,), nprocs=RING_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + RING_DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"the ring workers did not finish in {RING_DEADLINE_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = [json.loads((RING_OUT / f"rank{r}.json").read_text()) for r in range(RING_RANKS)]
+    cfg = TransformerConfig.bert_base()
+    r0 = ranks[0]
+    losses = r0["losses"]
+    emit("ring", config="bert-base", layers=cfg.n_layers, d_model=cfg.d_model, batch=B,
+         seq=S, mesh={"dp": 1, "sp": RING_RANKS}, steps=RING_STEPS,
+         rotation=f"gloo, pinned-host staged, {RING_RANKS} ranks on card 0",
+         core_check=r0["core_check"], rtol=RTOL, atol=ATOL,
+         first_loss=losses[0], dense_first_loss=r0["dense_first_loss"],
+         first_loss_rel_gap=abs(losses[0] - r0["dense_first_loss"]) / r0["dense_first_loss"],
+         first_loss_rtol=RING_LOSS_RTOL, losses=losses,
+         per_rank=[{k: r[k] for k in ("rank", "launches", "step_ms", "steady_step_ms",
+                                       "tokens_per_s", "step_split", "step_device_busy_ms",
+                                       "core_fwd", "core_bwd",
+                                       "kv_shift_host_ms", "kv_shift_bytes", "peak_mem_gb",
+                                       "backend")} for r in ranks],
+         dense_fwd_ms=r0["dense_fwd_ms"], dense_bwd_ms=r0["dense_bwd_ms"],
+         # the ranks share the card, which runs one process's work at a time
+         card_idle_share=1 - sum(r["step_device_busy_ms"] for r in ranks)
+         / (sum(r["step_split"]["step_ms"] for r in ranks) / RING_RANKS),
+         seconds=time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses), f"non-finite ring loss: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0], f"ring loss did not decrease: {losses}")
+    check(abs(losses[0] - r0["dense_first_loss"])
+          <= RING_LOSS_RTOL * abs(r0["dense_first_loss"]),
+          f"ring first loss {losses[0]} vs dense flash loss {r0['dense_first_loss']}")
+    for r in ranks:
+        check(r["losses"] == losses, f"rank {r['rank']} saw other losses: {r['losses']}")
+        for name, n in r["launches"].items():
+            want = cfg.n_layers * (r["rank"] + 1) * RING_STEPS
+            check(n == want, f"rank {r['rank']} launched {name} {n} times, want {want}")
+    return {key: [r["launches"][key] for r in ranks] for key in ("fwd", "dq", "dkv")}
+
+
 def main() -> int:
     import torch
 
@@ -364,6 +631,7 @@ def main() -> int:
     kern = kernel_phase(fa)
     train = train_phase(fa)
     profile_phase(train["step_ms"])
+    ring_launches = ring_phase()
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():
@@ -371,6 +639,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": f"{TPU_SOURCE}:{tpu_line}", "tpu_source": f"{TPU_SOURCE}:{tpu_body}",
             "launches": train["launches"][key],
+            "ring_launches": ring_launches[key],
             "max_abs_err": kern["errs"][kname], "max_err": kern["errs"][kname],
             "ms": kern["ms"][kname], "ms_cold_l2": kern["ms_cold"][kname],
             "plain_ms": kern["plain_ms"][kname],

@@ -9,7 +9,9 @@ the LM head is the tied embedding. Params are f32; compute runs in
 the JAX functions, so a bf16 model here rounds where the JAX one does.
 
 The attention core is pluggable: ``_full_attention_core`` by default,
-`ops.flash_attention.flash_attention` for the fused kernels.
+`ops.flash_attention.flash_attention` for the fused kernels. The
+sequence-parallel path (`make_ring_transformer_loss`) runs the same block
+per sequence shard with a ring attention core (`ops/ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kungfu_tpu_torch import resolve_device
+from kungfu_tpu_torch.ops.ring_attention import ring_self_attention
 
 LAYER_KEYS = ("ln1_scale", "ln2_scale", "wqkv", "wo", "w_in", "w_out")
 
@@ -160,6 +163,10 @@ def transformer_hidden(params, tokens, cfg: TransformerConfig, core=None):
         raise ValueError(f"sequence {S} exceeds max_seq {cfg.max_seq}")
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()] + params["pos_embed"].to(dt)[:S]
+    return _layers(x, params, cfg, core)
+
+
+def _layers(x, params, cfg: TransformerConfig, core):
     # one unbind per stacked leaf: its backward writes each layer's gradient
     # into the stacked grad once (indexing layer by layer would accumulate
     # a full-size zero-padded gradient per layer)
@@ -184,3 +191,62 @@ def transformer_loss(params, batch, cfg: TransformerConfig, core=None):
         tokens, targets = batch[:, :-1], batch[:, 1:]
     x = transformer_hidden(params, tokens, cfg, core=core)
     return lm_head_loss(params, x, targets, cfg)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel (ring attention) path: the long-context mode. Each rank
+# runs the whole forward on its (B, S_local) shard: embedding, norms and FFN
+# are pointwise over positions, so only attention crosses shards, as the K/V
+# ring of ops/ring_attention.py. Activation memory per rank scales with
+# S / sp instead of S.
+# ---------------------------------------------------------------------------
+
+
+def ring_transformer_apply_shard(params, tokens, cfg: TransformerConfig, session,
+                                 sp_axis: str = "sp", core=None):
+    """tokens (B, S_local) int: this rank's chunk of the sequence, chunk i
+    on index i of the session's `sp_axis`. Returns the shard's pre-norm
+    hidden states (B, S_local, D); feed them to `lm_head_loss`. `core` is
+    a ring attention function (q, k, v, group, causal) ->
+    context, `ops.ring_attention.ring_self_attention` by default."""
+    core = core or ring_self_attention
+    Sl = tokens.shape[1]
+    sp_size = session.axis_size(sp_axis)
+    if sp_size * Sl > cfg.max_seq:
+        raise ValueError(f"global sequence {sp_size * Sl} exceeds max_seq {cfg.max_seq}")
+    dt = cfg.dtype
+    start = session.axis_index(sp_axis) * Sl
+    x = params["embed"].to(dt)[tokens.long()] + params["pos_embed"][start:start + Sl].to(dt)
+    group = session.axis_group(sp_axis)
+
+    def ring_core(q, k, v):
+        return core(q, k, v, group, causal=True)
+
+    return _layers(x, params, cfg, ring_core)
+
+
+def make_ring_transformer_loss(cfg: TransformerConfig, session, sp_axis: str = "sp",
+                               dp_axis: str = "dp", core=None):
+    """Sequence-parallel causal-LM loss over a `dp_axis` x `sp_axis` mesh
+    that is the session's whole world. Returns loss_fn(model, (tokens,
+    targets)) -> this rank's loss on its (B / dp, S / sp) shard (from
+    `parallel.dp.shard_batch(batch, session, axes=(dp_axis, sp_axis))`),
+    local and differentiable.
+
+    JAX's pmean over sp, then dp, is the mean over the world, which
+    `make_train_step` takes; every shard holds as many tokens. The
+    gradients need no rescaling either: each rank backpropagates its own
+    loss, and the ring's backward hands rank j the gradient of every rank's
+    loss through rank j's activations, so S-SGD's world average is the
+    gradient of the mean loss."""
+    if session.axis_size(dp_axis) * session.axis_size(sp_axis) != session.size:
+        raise ValueError(f"mesh {session.shape} is not {dp_axis} x {sp_axis} over "
+                         f"the session's {session.size} ranks")
+
+    def loss_fn(model, batch):
+        tokens, targets = batch
+        params = model.tree()
+        x = ring_transformer_apply_shard(params, tokens, cfg, session, sp_axis, core)
+        return lm_head_loss(params, x, targets, cfg)
+
+    return loss_fn

@@ -7,6 +7,12 @@ initialized process group the world is one process and each collective is
 the identity. Torch has no XLA all-reduce combiner, so the group variants
 flatten their inputs into one buffer per dtype and issue one collective
 per buffer.
+
+`ring_shift` is the port of `lax.ppermute` around a ring: point-to-point
+sends and receives. gloo's send and receive take host memory only, so on a
+gloo group a CUDA tensor travels through pinned host buffers; this is the
+only place the port stages through the host, and it is chosen by the
+group's backend.
 """
 
 from __future__ import annotations
@@ -115,3 +121,70 @@ def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
     if world_size(group) > 1:
         dist.broadcast(y, src=root, group=group)
     return y
+
+
+# pinned host buffers of the gloo ring, reused from shift to shift: one
+# per (role, dtype), grown to the largest tensor seen and viewed into, so
+# varying shapes cost no more pinned memory than the largest. A shift waits
+# for its transfers before it returns, so the next shift may overwrite them.
+_PINNED: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+
+
+def _pinned(role: str, like: torch.Tensor) -> torch.Tensor:
+    key = (role, like.dtype)
+    buf = _PINNED.get(key)
+    if buf is None or buf.numel() < like.numel():
+        buf = _PINNED[key] = torch.empty(like.numel(), dtype=like.dtype, pin_memory=True)
+    return buf[:like.numel()].view(like.shape)
+
+
+def rotate(xs: Sequence[torch.Tensor], group=None, shift: int = 1) -> List[torch.Tensor]:
+    """Send each of `xs` to rank (i + shift) % n of the group and return
+    what rank (i - shift) % n sent, in one batch of point-to-point
+    operations (every send and receive is posted before any is waited on,
+    so no order of ranks can deadlock). Not differentiable: see
+    `ring_shift`."""
+    n = world_size(group)
+    if n == 1 or shift % n == 0:
+        return [x.clone() for x in xs]
+    if group is None:
+        group = dist.group.WORLD
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    staged = dist.get_backend(group) == "gloo"
+    recvs, ops = [], []
+    for i, x in enumerate(xs):
+        x = x.contiguous()
+        if staged and x.is_cuda:
+            send, recv = _pinned(f"send{i}", x), _pinned(f"recv{i}", x)
+            send.copy_(x)
+        else:
+            send, recv = x, torch.empty_like(x)
+        recvs.append(recv)
+        ops += [dist.P2POp(dist.isend, send, dst, group),
+                dist.P2POp(dist.irecv, recv, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [r.to(x.device) if r.device != x.device else r for r, x in zip(recvs, xs)]
+
+
+class RingShift(torch.autograd.Function):
+    """`rotate` with a gradient: the backward shifts the cotangent the
+    other way, as JAX transposes `lax.ppermute`."""
+
+    @staticmethod
+    def forward(ctx, x, group, k: int):
+        ctx.group, ctx.k = group, k
+        return rotate([x], group, k)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return rotate([g], ctx.group, -ctx.k)[0], None, None
+
+
+def ring_shift(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Differentiable ring rotation: rank i's `x` lands on rank
+    (i + shift) % n of the group; the result is what rank (i - shift) % n
+    held."""
+    return RingShift.apply(x, group, shift)

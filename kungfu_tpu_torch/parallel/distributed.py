@@ -5,17 +5,22 @@ its place from the environment the runner sets (`KF_SELF_SPEC`,
 `KF_INIT_PEERS`, `KF_DEVICE_SLOTS`; the parsing is a private copy of
 `kungfu_tpu/runner/env.py`'s). Rank is this worker's index in the peer
 list and size the list's length. Every worker meets at rank 0's host on a
-port derived from rank 0's peer spec, so no message is exchanged before
-`init_process_group`. NCCL on the card, gloo on the CPU. Without kfrun a
+port derived from rank 0's peer spec. NCCL on the card, gloo on the CPU,
+unless the caller names the backend: gloo is the only way two ranks may
+share one card, as they must where a host has fewer cards than ranks.
+Before NCCL is set up, the ranks trade their card indices through the
+rendezvous store, and two ranks of one host on one card raise at once
+(NCCL itself would fail only at the first collective). Without kfrun a
 process is a world of one and no process group is formed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import zlib
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -27,6 +32,7 @@ INIT_PEERS = "KF_INIT_PEERS"
 DEVICE_SLOTS = "KF_DEVICE_SLOTS"
 RENDEZVOUS_PORT_BASE = 20000
 RENDEZVOUS_PORT_SPAN = 20000
+RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def _parse_peer(spec: str) -> Tuple[str, int]:
@@ -73,12 +79,11 @@ def parse_worker_env(environ: Optional[Mapping[str, str]] = None) -> WorkerSpec:
     return WorkerSpec(me, peers, slots)
 
 
-def rendezvous_address(spec: WorkerSpec) -> str:
-    """tcp://host:port of the store every worker meets at: rank 0's host,
-    a port fixed by rank 0's peer spec."""
+def rendezvous_address(spec: WorkerSpec) -> Tuple[str, int]:
+    """(host, port) of the store every worker meets at: rank 0's host, a
+    port fixed by rank 0's peer spec."""
     host, _ = _parse_peer(spec.peers[0])
-    port = RENDEZVOUS_PORT_BASE + zlib.crc32(spec.peers[0].encode()) % RENDEZVOUS_PORT_SPAN
-    return f"tcp://{host}:{port}"
+    return host, RENDEZVOUS_PORT_BASE + zlib.crc32(spec.peers[0].encode()) % RENDEZVOUS_PORT_SPAN
 
 
 def _pick_device(device, spec: WorkerSpec) -> torch.device:
@@ -96,19 +101,39 @@ def _pick_device(device, spec: WorkerSpec) -> torch.device:
     return device
 
 
-def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = None) -> torch.device:
+def check_card_sharing(backend: str, ranks: Sequence[int], cards: Sequence[int]) -> None:
+    """Raise ValueError if NCCL would put two of `ranks` (the ranks of one
+    host) on one card; `cards[i]` is the card index of `ranks[i]`."""
+    if backend != "nccl":
+        return
+    first = {}
+    for rank, card in zip(ranks, cards):
+        if card in first:
+            raise ValueError(
+                f"ranks {first[card]} and {rank} are both on card cuda:{card} of one "
+                "host; NCCL needs a card per rank: give each rank its own card "
+                "(KF_DEVICE_SLOTS) or pass backend='gloo'")
+        first[card] = rank
+
+
+def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = None,
+                            backend: Optional[str] = None) -> torch.device:
     """Join this worker's world and return the device it computes on
-    (None = its CUDA card). Idempotent."""
+    (None = its CUDA card). `backend` None means NCCL on the card and gloo
+    on the CPU. Idempotent."""
     spec = parse_worker_env(environ)
     device = _pick_device(device, spec)
     if spec.size == 1 or dist.is_initialized():
         return device
-    dist.init_process_group(
-        "nccl" if device.type == "cuda" else "gloo",
-        init_method=rendezvous_address(spec),
-        world_size=spec.size,
-        rank=spec.rank,
-    )
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    host, port = rendezvous_address(spec)
+    store = dist.TCPStore(host, port, spec.size, spec.rank == 0, RENDEZVOUS_TIMEOUT)
+    if backend == "nccl":
+        store.set(f"kf_card/{spec.rank}", str(device.index))
+        me = _parse_peer(spec.self_spec)[0]
+        ranks = [r for r, p in enumerate(spec.peers) if _parse_peer(p)[0] == me]
+        check_card_sharing(backend, ranks, [int(store.get(f"kf_card/{r}")) for r in ranks])
+    dist.init_process_group(backend, store=store, world_size=spec.size, rank=spec.rank)
     return device
 
 

@@ -29,14 +29,18 @@ def make_train_step(loss_fn: Callable, optimizer, session) -> Callable:
     return step
 
 
-def shard_batch(batch, session):
-    """This rank's slice of a global batch (leading dim split evenly over
-    the world), moved to the session's device. `batch` is a tensor or a
-    tuple/list of tensors."""
+def shard_batch(batch, session, axes=("dp",)):
+    """This rank's block of a global batch, moved to the session's device:
+    dimension d split evenly over mesh axis `axes[d]`, at this rank's index
+    on it (axes=("dp", "sp"): rows over dp, columns over sp, JAX's
+    `P("dp", "sp")`). `batch` is a tensor or a tuple/list of tensors."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(shard_batch(b, session) for b in batch)
-    n, size = batch.shape[0], session.size
-    if n % size:
-        raise ValueError(f"batch of {n} does not split over {size} ranks")
-    per = n // size
-    return batch[session.rank * per:(session.rank + 1) * per].to(session.device)
+        return type(batch)(shard_batch(b, session, axes) for b in batch)
+    for dim, name in enumerate(axes):
+        n, size = batch.shape[dim], session.axis_size(name)
+        if n % size:
+            raise ValueError(f"dimension {dim} of {n} does not split over {size} "
+                             f"ranks of axis {name!r}")
+        per = n // size
+        batch = batch.narrow(dim, session.axis_index(name) * per, per)
+    return batch.to(session.device)

@@ -8,10 +8,14 @@ the suite's JAX conftest:
 Without a card every test skips: the kernels have no CPU mode.
 """
 
+import os
+import socket
 import threading
+import time
 
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 from kungfu_tpu_torch.ops import flash_attention as tfa
 
@@ -138,3 +142,117 @@ def test_cuda_autograd_matches_plain(dtype, hd):
     torch.testing.assert_close(out.float().cpu(), ref, rtol=2e-2, atol=2e-2)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a.float().cpu(), b, rtol=2e-2, atol=2e-2)
+
+
+def _ring_worker(rank, peers, backend):
+    """One rank of a ring: gloo ranks share card 0, NCCL ranks own card
+    `rank`. The ring kernel path on this rank's block of the sequence
+    against the single-process kernel path on the whole of it (the same
+    seeded inputs on every rank)."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0" if backend == "gloo" else str(rank))
+    from kungfu_tpu_torch.ops.ring_attention import ring_self_attention
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+
+    device = initialize_device_plane(backend=backend)
+    n = len(peers)
+    try:
+        # 125 rows a rank is ragged against the kernels' 64-row tiles
+        for sl in (128, 125):
+            for hd in (64, 128):
+                for causal in (True, False):
+                    S = n * sl
+                    gen = torch.Generator(device=device).manual_seed(S + hd)
+                    q, k, v, do = (torch.randn(2, 3, S, hd, device=device, dtype=torch.bfloat16,
+                                               generator=gen) for _ in range(4))
+                    full = [t.clone().requires_grad_() for t in (q, k, v)]
+                    ref = tfa.flash_attention(*full, causal=causal)
+                    refs = (ref, *torch.autograd.grad(ref, full, do))
+                    part = slice(rank * sl, (rank + 1) * sl)
+                    mine = [t[:, :, part].clone().requires_grad_() for t in (q, k, v)]
+                    out = ring_self_attention(*mine, None, causal=causal)
+                    outs = (out, *torch.autograd.grad(out, mine, do[:, :, part]))
+                    for name, got, want in zip(("O", "dQ", "dK", "dV"), outs, refs):
+                        torch.testing.assert_close(
+                            got.float(), want[:, :, part].float(), rtol=2e-2, atol=2e-2,
+                            msg=lambda m: f"{name} S={S} hd={hd} causal={causal} rank {rank}: {m}")
+        torch.cuda.synchronize()
+    finally:
+        shutdown_device_plane()
+
+
+def _spawn(fn, n, what, *args):
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    ctx = mp.start_processes(fn, args=(peers, *args), nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 240
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail(f"{what} did not finish in 240 s")
+
+
+@pytest.mark.cuda
+def test_cuda_ring_on_two_gloo_ranks_matches_single_process():
+    """The ring kernel path (O, dQ, dK, dV) on two gloo ranks that share
+    card 0, against the single-process kernel path: B*H = 6, S = 256 and a
+    ragged 250, hd 64 and 128, bf16, causal and not."""
+    _need_card()
+    from kungfu_tpu_torch.ops import _build
+
+    _build.build_all(["flash_attention"])  # once, before the ranks load it
+    _spawn(_ring_worker, 2, "the two ring ranks", "gloo")
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_staging_keeps_one_pinned_buffer_per_role():
+    """The gloo ring's pinned host buffers: one per (role, dtype), grown to
+    the largest tensor seen and viewed into, so shifts of varying sizes
+    hold no more pinned memory than the largest of them."""
+    _need_card()
+    from kungfu_tpu_torch.ops import collective
+
+    collective._PINNED.clear()
+    for rows in (64, 32, 128, 16):
+        buf = collective._pinned("send0", torch.empty(rows, 2, device="cuda"))
+        assert buf.shape == (rows, 2) and buf.is_pinned()
+    assert list(collective._PINNED) == [("send0", torch.float32)]
+    assert collective._PINNED["send0", torch.float32].numel() == 256
+
+
+@pytest.mark.cuda
+def test_cuda_ring_over_nccl_matches_single_process():
+    """The same on 2 or 4 NCCL ranks, one card each: the rotation goes
+    card to card (over NVLink where the cards have it), no host staging."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from kungfu_tpu_torch.ops import _build
+
+    _build.build_all(["flash_attention"])
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    _spawn(_ring_worker, n, f"the {n} NCCL ring ranks", "nccl")
+
+
+def _nccl_worker(rank, peers):
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
+
+    with pytest.raises(ValueError, match=r"ranks 0 and 1 are both on card cuda:0"):
+        initialize_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_refuses_two_ranks_on_one_card():
+    """Two ranks of one host given card 0 under the default backend (NCCL)
+    both raise ValueError in initialize_device_plane, before any
+    collective."""
+    _need_card()
+    _spawn(_nccl_worker, 2, "the two NCCL ranks")

@@ -37,13 +37,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res["bad"] == []
     assert "kungfu_tpu_torch.ops.flash_attention" in res["imported"]
     assert "kungfu_tpu_torch.examples.bert_ssgd" in res["imported"]
+    assert "kungfu_tpu_torch.ops.ring_attention" in res["imported"]
     assert len(res["imported"]) >= 14
 
 
 def test_every_module_of_the_slice_exists():
     names = {m.name for m in pkgutil.walk_packages(kungfu_tpu_torch.__path__,
                                                    "kungfu_tpu_torch.")}
-    for mod in ("ops._build", "ops.flash_attention", "ops.collective", "base.ops",
+    for mod in ("ops._build", "ops.flash_attention", "ops.ring_attention",
+                "ops.collective", "base.ops",
                 "models.transformer", "models.convert", "parallel.distributed",
                 "parallel.mesh", "parallel.dp", "optimizers.core", "initializer",
                 "examples.bert_ssgd"):
@@ -63,12 +65,14 @@ def _entry_points():
         "init_transformer": lambda: init_transformer(TransformerConfig.tiny()),
         "initialize_device_plane": lambda: initialize_device_plane(environ={}),
         "make_mesh": lambda: make_mesh(),
+        "make_mesh_2d": lambda: make_mesh(shape={"dp": 1, "sp": 1}),
         "bert_ssgd.main": lambda: bert_ssgd.main(["--steps", "1", "--batch", "2"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_transformer",
-                                  "initialize_device_plane", "make_mesh", "bert_ssgd.main"])
+                                  "initialize_device_plane", "make_mesh", "make_mesh_2d",
+                                  "bert_ssgd.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -94,3 +98,20 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q = torch.zeros(2, 64, hd, dtype=dt)
     with pytest.raises((ValueError, TypeError)):
         tfa._forward_cuda(q, q, q, True, 0.125)
+
+
+@pytest.mark.parametrize("backend,cards,refused", [
+    ("nccl", [0, 0], True),   # two ranks of one host on one card
+    ("nccl", [0, 1, 0], True),
+    ("nccl", [0, 1], False),
+    ("gloo", [0, 0], False),  # gloo may share a card
+])
+def test_nccl_refuses_two_ranks_on_one_card(backend, cards, refused):
+    from kungfu_tpu_torch.parallel.distributed import check_card_sharing
+
+    ranks = [4 + i for i in range(len(cards))]
+    if not refused:
+        check_card_sharing(backend, ranks, cards)
+        return
+    with pytest.raises(ValueError, match=r"ranks 4 and \d+ are both on card cuda:0"):
+        check_card_sharing(backend, ranks, cards)
