@@ -38,7 +38,26 @@ Phases, each printing one JSON line:
            rank's launches (rank r runs 12 (r + 1) of each kernel a step),
            step times and their split (ring shifts, gradient average, the
            rest), the card's idle share, the ring core's device times and
-           one K/V shift's host time.
+           one K/V shift's host time;
+  resnet   `python -m kungfu_tpu_torch.bench` at full width on card 0
+           (ResNet-50, 224x224, 1000 classes, 128 images, S-SGD over SGD
+           momentum; 2 warm-up windows and the best of 6 windows of 16
+           steps): its JSON fields beside the card's name and power limit,
+           then 3 steady steps under torch.profiler (device busy ms, idle
+           share, kernels a step, the top 20 and the convolutions, norms and
+           elementwise work summed apart); gates: eval logits in bf16 within
+           2e-2 + 2e-2|ref| of the same weights in f32 at 4 images, finite
+           losses falling on batch 0, running statistics finite and moved;
+  optimizers  two gloo worker processes sharing card 0 train ResNet-50 at
+           full width, 16 images a rank, 3 steps each of S-SGD (twice),
+           ZeRO-1, SMA (alpha 0.1) and AdaptiveSGD (change_step 1) from one
+           broadcast initialization, with deterministic kernels, results in
+           `build/chip_smoke_opt/`; gates: the two S-SGD runs bitwise equal,
+           ZeRO's parameters bitwise equal to S-SGD's and its state at most half of S-SGD's plus padding,
+           SMA's second step against its formula from both ranks'
+           parameters, and AdaptiveSGD's ranks bitwise equal after the
+           switch; per rank the steady step ms, the gloo ms of a step and
+           the peak memory.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -68,6 +87,15 @@ RTOL = ATOL = 2e-2  # bf16 parity, as tests/test_flash_attention.py holds it
 # loss is near ln(vocab) whatever attention does, so the limit is set from
 # the readings on the H100 (relative gap 6.2e-6; PERF.md), not from RTOL
 RING_LOSS_RTOL = 1e-4
+RESNET_EVAL_IMAGES = 4
+RESNET_RTOL = RESNET_ATOL = 2e-2  # bf16 eval logits against f32 on the card
+OPT_RANKS, OPT_BATCH, OPT_STEPS, OPT_SIDE = 2, 16, 3, 224
+OPT_DEADLINE_S = 300
+OPT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_opt"
+SMA_ALPHA = 0.1
+# one SMA step against its formula recomputed in the parent: the same
+# operations in another order, a few f32 roundings apart
+SMA_RTOL, SMA_ATOL = 1e-6, 1e-7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 KERNEL_SOURCE = "kungfu_tpu_torch/csrc/flash_attention.cu"
@@ -320,25 +348,18 @@ def train_phase(fa) -> dict:
     return {"launches": launches, "step_ms": steady[len(steady) // 2]}
 
 
-def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
-    """Where a training step's device time goes: torch.profiler over steady
-    steps of the same trainer (after the counted run, so it adds no launches
-    to it), device kernels summed by name; the rest of the wall time is the
-    device's idle share. The profiler slows the host, so the idle share is
-    also given against the unprofiled steady step of the train phase."""
+def profile_steps(run, steps: int):
+    """torch.profiler over `run()` (which takes `steps` steps and returns
+    when the device is done): device kernels summed by name, as rows of
+    (name, ms a step, launches a step) in falling time, and the wall ms a
+    step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kungfu_tpu_torch.examples import bert_ssgd
-
-    trainer = bert_ssgd.Trainer(bert_ssgd.parse_args(
-        ["--config", "bert-base", "--batch", str(B), "--seq", str(S), "--device", "cuda",
-         "--fixed-batch"]))
-    trainer.train(2)  # warm-up: allocator, cuBLAS handles, optimizer state
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = trainer.train(steps)
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -353,18 +374,36 @@ def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         rows.append((e.key, dev_us / 1e3 / steps, e.count // steps))
     rows.sort(key=lambda r: -r[1])
+    return rows, wall_ms / steps, out
+
+
+def top(rows, n: int = 20):
+    return [{"kernel": k[:100], "ms_per_step": ms, "per_step": c} for k, ms, c in rows[:n]]
+
+
+def profile_phase(unprofiled_step_ms: float, steps: int = 3) -> None:
+    """Where a training step's device time goes: torch.profiler over steady
+    steps of the same trainer (after the counted run, so it adds no launches
+    to it), device kernels summed by name; the rest of the wall time is the
+    device's idle share. The profiler slows the host, so the idle share is
+    also given against the unprofiled steady step of the train phase."""
+    from kungfu_tpu_torch.examples import bert_ssgd
+
+    trainer = bert_ssgd.Trainer(bert_ssgd.parse_args(
+        ["--config", "bert-base", "--batch", str(B), "--seq", str(S), "--device", "cuda",
+         "--fixed-batch"]))
+    trainer.train(2)  # warm-up: allocator, cuBLAS handles, optimizer state
+    rows, per_step, out = profile_steps(lambda: trainer.train(steps), steps)
     busy = sum(r[1] for r in rows)
     flash = sum(r[1] for r in rows if "kf_flash::" in r[0])
     gemm = sum(r[1] for r in rows if "gemm" in r[0].lower() or "cutlass" in r[0].lower())
-    per_step = wall_ms / steps
     emit("profile", steps=steps, step_ms=out["step_ms"], wall_ms_per_step=per_step,
          device_busy_ms_per_step=busy, device_idle_share=1 - busy / per_step,
          unprofiled_step_ms=unprofiled_step_ms,
          device_idle_share_unprofiled=1 - busy / unprofiled_step_ms,
          flash_kernels_ms_per_step=flash, flash_share_of_busy=flash / busy,
          gemm_ms_per_step=gemm,
-         kernels_per_step=sum(r[2] for r in rows),
-         top=[{"kernel": k[:100], "ms_per_step": ms, "per_step": n} for k, ms, n in rows[:20]])
+         kernels_per_step=sum(r[2] for r in rows), top=top(rows))
 
 
 def _ring_rank(rank: int, peers) -> dict:
@@ -543,7 +582,6 @@ def ring_phase() -> dict:
     through gloo (NCCL refuses two ranks on one card); the parent checks
     what they wrote. Returns each kernel's launches per rank."""
     import torch
-    import torch.multiprocessing as mp
 
     from kungfu_tpu_torch.models.transformer import TransformerConfig
 
@@ -552,23 +590,7 @@ def ring_phase() -> dict:
     RING_OUT.mkdir(parents=True, exist_ok=True)
     for f in RING_OUT.glob("rank*.json"):
         f.unlink()
-    socks = [socket.socket() for _ in range(RING_RANKS)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
-    for s in socks:
-        s.close()
-    ctx = mp.start_processes(ring_worker, args=(peers,), nprocs=RING_RANKS, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + RING_DEADLINE_S
-    try:
-        while not ctx.join(timeout=1):
-            check(time.monotonic() < deadline,
-                  f"the ring workers did not finish in {RING_DEADLINE_S} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
+    spawn_world(ring_worker, RING_RANKS, RING_DEADLINE_S, "ring")
     ranks = [json.loads((RING_OUT / f"rank{r}.json").read_text()) for r in range(RING_RANKS)]
     cfg = TransformerConfig.bert_base()
     r0 = ranks[0]
@@ -603,6 +625,312 @@ def ring_phase() -> dict:
     return {key: [r["launches"][key] for r in ranks] for key in ("fwd", "dq", "dkv")}
 
 
+def kernel_class(name: str) -> str:
+    """Convolutions (cuDNN's implicit GEMMs, forward, dgrad, wgrad, and the
+    cuBLAS GEMMs it runs 1x1 convolutions and the head as),
+    norms (batch-norm statistics, normalize and their backward) or
+    elementwise work (everything else: ReLU, adds, casts, pads, pooling,
+    the optimizer's updates)."""
+    low = name.lower()
+    if any(w in low for w in ("conv", "xmma", "gemm", "cutlass", "dgrad", "wgrad", "fprop",
+                              "cudnn", "implicit", "nvjet")):
+        return "conv"
+    if "batch_norm" in low or "batchnorm" in low:
+        return "norm"
+    return "elementwise"
+
+
+def resnet_phase(smi: str) -> None:
+    """The port's bench at full width on card 0 (`kungfu_tpu_torch.bench`:
+    ResNet-50, 224x224, 1000 classes, 128 images, S-SGD(SGD momentum)),
+    a profiler pass over 3 steady steps, and the gates: bf16 eval logits
+    against the same weights in f32 on the card, finite falling losses,
+    running statistics finite and moved."""
+    import torch
+
+    from kungfu_tpu_torch import bench
+    from kungfu_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = bench.Bench(bench.parse_args(["--device", "cuda"]))
+    res = b.run()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in b.losses]
+
+    def three_steps():
+        for i in range(3):
+            b.step(i % bench.INNER)
+        return float(b.losses[-1])  # waits for the device
+
+    rows, wall_ms, _ = profile_steps(three_steps, 3)
+    busy = sum(r[1] for r in rows)
+    classes = {}
+    for name, ms, n in rows:
+        c = classes.setdefault(kernel_class(name), {"ms_per_step": 0.0, "per_step": 0})
+        c["ms_per_step"] += ms
+        c["per_step"] += n
+
+    # gate: eval logits in bf16 against the same weights in f32, on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = resnet.resnet50(1000, torch.float32)
+    ref.load_state_dict(b.model.state_dict())
+    ref = ref.to(b.device, memory_format=torch.channels_last)
+    gen = torch.Generator(device=b.device).manual_seed(7)
+    side = b.args.image_size
+    x = torch.randn(RESNET_EVAL_IMAGES, side, side, 3, device=b.device, generator=gen)
+    with torch.no_grad():
+        got, want = b.model(x, train=False), ref(x, train=False)
+    err = (got - want).abs()
+    ratio = (err / (RESNET_ATOL + RESNET_RTOL * want.abs())).max().item()
+    stats = torch.cat([t.reshape(-1) for t in b.stats])
+    init = torch.cat([torch.ones_like(t).reshape(-1) if name.endswith("var")
+                      else torch.zeros_like(t).reshape(-1)
+                      for name, t in b.model.named_buffers()])
+    moved = (stats - init).abs().max().item()
+    first, again = losses[0], losses[-bench.INNER]  # batch 0, first and last window
+    emit("resnet", **res, nvidia_smi=smi, batch=b.args.batch, image_size=b.args.image_size,
+         inner=bench.INNER, windows=bench.WINDOWS, warmup_windows=bench.WARMUP_WINDOWS,
+         steps=len(losses), first_loss=first, last_window_first_loss=again,
+         last_loss=losses[-1], peak_mem_gb=peak_gb,
+         profile={"steps": 3, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+                  "device_idle_share": 1 - busy / wall_ms,
+                  "device_idle_share_vs_bench_step": 1 - busy / res["step_ms"],
+                  "kernels_per_step": sum(r[2] for r in rows), "by_class": classes,
+                  "top": top(rows)},
+         eval_check={"images": RESNET_EVAL_IMAGES, "max_abs_err": err.max().item(),
+                     "worst_tol_ratio": ratio, "rtol": RESNET_RTOL, "atol": RESNET_ATOL,
+                     "ref_max_abs": want.abs().max().item()},
+         stats_check={"finite": bool(stats.isfinite().all()), "max_moved": moved},
+         seconds=time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in losses), f"non-finite ResNet loss: {losses}")
+    check(again < first, f"ResNet loss did not fall on batch 0: {first} -> {again}")
+    check(bool(got.isfinite().all()) and ratio <= 1.0,
+          f"bf16 eval logits vs f32: worst error/tolerance {ratio}")
+    check(bool(stats.isfinite().all()) and moved > 0.0, "running statistics did not move")
+
+
+def _opt_rank(rank: int, peers) -> dict:
+    """One rank of the optimizers phase: ResNet-50 at full width, 16 images
+    a rank, 3 steps of each wrapper from one broadcast initialization."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    import torch
+
+    from kungfu_tpu_torch.initializer import broadcast_variables
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.optimizers import core
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
+    from kungfu_tpu_torch.parallel.dp import make_train_step
+    from kungfu_tpu_torch.parallel.mesh import make_mesh
+
+    # deterministic kernels: two runs of one wrapper give the same bits, so
+    # ZeRO against S-SGD measures the wrappers, not cuDNN's algorithms; an
+    # op with no deterministic version raises
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    device = initialize_device_plane(backend="gloo")
+    session = make_mesh(device)
+    group = session.group
+    model = broadcast_variables(
+        init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device), session)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    params = list(model.parameters())
+    gen = torch.Generator(device=device).manual_seed(100 + rank)
+    batches = [(torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                            generator=gen),
+                torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+               for _ in range(OPT_STEPS)]
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.1, momentum=0.9)
+
+    def flat():
+        return torch.cat([p.detach().reshape(-1) for p in params])
+
+    def bitwise_equal_across_ranks(t) -> bool:
+        same = torch.tensor([float(torch.equal(collective.broadcast(t, 0, group), t))],
+                            device=device)
+        return bool(collective.all_reduce(same, group=group).item() == session.size)
+
+    timed_names = ("group_all_reduce", "group_broadcast", "reduce_scatter",
+                   "all_gather_into", "all_reduce")
+    out = {"rank": rank, "device": str(device), "backend": session.describe(), "wrappers": {}}
+    finals = {}
+    for name in ("ssgd", "ssgd_again", "zero", "sma", "ada"):
+        model.load_state_dict(init)
+        if name.startswith("ssgd"):
+            opt = core.synchronous_sgd(sgd(params), session)
+        elif name == "zero":
+            opt = core.zero_sharded(sgd, params, session)
+        elif name == "sma":
+            opt = core.synchronous_averaging(sgd(params), session, alpha=SMA_ALPHA)
+        else:
+            opt = core.adaptive_sgd(sgd, params, session, change_step=1, alpha=SMA_ALPHA)
+        step = make_train_step(resnet_loss, opt, session)
+        session.barrier()
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, step_ms = [], []
+        w = {"start_mem_gb": torch.cuda.memory_allocated(device) / 2**30}
+        for i in range(OPT_STEPS):
+            if name == "sma" and i == 1:  # the step the parent checks
+                before = flat()
+            t0 = time.perf_counter()
+            losses.append(float(step(model, batches[i])))  # waits for the device
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if name == "sma" and i == 1:
+                buf = torch.cat([opt.base.state[p]["momentum_buffer"].reshape(-1)
+                                 for p in params])
+                torch.save({"before": before.cpu(), "buf": buf.cpu(), "after": flat().cpu()},
+                           OPT_OUT / f"sma_rank{rank}.pt")
+            if name == "ada" and i == 1:  # the switch step
+                w["bitwise_equal_after_switch"] = bitwise_equal_across_ranks(flat())
+        finals[name] = flat()
+        if name == "ada":
+            w["bitwise_equal_after_last_step"] = bitwise_equal_across_ranks(finals[name])
+        w["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+        if name in ("ssgd", "zero"):
+            w["state_bytes"] = core.state_bytes(opt.base)
+        # one more step, after the gates' readings, with each collective
+        # timed from a drained stream: the gloo ms of a step
+        spent = {"ms": 0.0}
+        saved = {n: getattr(collective, n) for n in timed_names}
+
+        def timed(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent["ms"] += (time.perf_counter() - t) * 1e3
+            return run
+
+        for n, fn in saved.items():
+            setattr(collective, n, timed(fn))
+        try:
+            t0 = time.perf_counter()
+            float(step(model, batches[0]))
+            timed_step_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for n, fn in saved.items():
+                setattr(collective, n, fn)
+        steady = sorted(step_ms[1:])
+        w.update(losses=losses, step_ms=step_ms, steady_step_ms=steady[len(steady) // 2],
+                 timed_step_ms=timed_step_ms, gloo_ms_per_step=spent["ms"])
+        out["wrappers"][name] = w
+    out["zero_vs_ssgd_max_abs"] = (finals["zero"] - finals["ssgd"]).abs().max().item()
+    out["ssgd_vs_ssgd_again_max_abs"] = (finals["ssgd_again"] - finals["ssgd"]).abs().max().item()
+    out["param_count"] = finals["ssgd"].numel()
+    out["leaves"] = len(params)
+    return out
+
+
+def opt_worker(rank: int, peers) -> None:
+    from kungfu_tpu_torch.parallel.distributed import shutdown_device_plane
+
+    try:
+        out = _opt_rank(rank, peers)
+        (OPT_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        shutdown_device_plane()
+
+
+def spawn_world(worker, n: int, deadline_s: float, what: str) -> None:
+    """Run `worker(rank, peers)` in n spawned processes; raise if they do
+    not finish in `deadline_s` (and kill what is left)."""
+    import torch.multiprocessing as mp
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    ctx = mp.start_processes(worker, args=(peers,), nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline, f"the {what} workers did not finish in "
+                  f"{deadline_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def optimizers_phase(smi: str) -> None:
+    """S-SGD, ZeRO-1, SMA and AdaptiveSGD on two gloo ranks sharing card 0,
+    ResNet-50 at full width, 16 images a rank; the parent checks ZeRO
+    against S-SGD and its state's size, one SMA step against its formula,
+    and AdaptiveSGD's ranks bitwise equal after the switch."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    OPT_OUT.mkdir(parents=True, exist_ok=True)
+    for f in list(OPT_OUT.glob("rank*.json")) + list(OPT_OUT.glob("sma_rank*.pt")):
+        f.unlink()
+    spawn_world(opt_worker, OPT_RANKS, OPT_DEADLINE_S, "optimizers")
+    ranks = [json.loads((OPT_OUT / f"rank{r}.json").read_text()) for r in range(OPT_RANKS)]
+
+    # SMA's second step against p + u + alpha (mean(p) - p), u = -lr * buf
+    sma = [torch.load(OPT_OUT / f"sma_rank{r}.pt", map_location="cpu")
+           for r in range(OPT_RANKS)]
+    mean = sum(s["before"] for s in sma) / OPT_RANKS
+    sma_err = 0.0
+    for s in sma:
+        want = s["before"] - 0.1 * s["buf"] + SMA_ALPHA * (mean - s["before"])
+        ratio = ((s["after"] - want).abs() / (SMA_ATOL + SMA_RTOL * want.abs())).max().item()
+        sma_err = max(sma_err, ratio)
+    spread = (sma[0]["before"] - sma[1]["before"]).abs().max().item()
+    del sma
+    n_params, leaves = ranks[0]["param_count"], ranks[0]["leaves"]
+    ssgd_bytes = ranks[0]["wrappers"]["ssgd"]["state_bytes"]
+    zero_bytes = [r["wrappers"]["zero"]["state_bytes"] for r in ranks]
+    pad_bytes = OPT_RANKS * leaves * 4
+    emit("optimizers", nvidia_smi=smi, model="resnet50", images_per_rank=OPT_BATCH,
+         image_size=OPT_SIDE, ranks=OPT_RANKS, steps=OPT_STEPS, base="SGD(lr 0.1, momentum 0.9)",
+         transport=f"gloo, {OPT_RANKS} ranks on card 0", params=n_params,
+         zero_vs_ssgd_max_abs=[r["zero_vs_ssgd_max_abs"] for r in ranks],
+         ssgd_rerun_max_abs=[r["ssgd_vs_ssgd_again_max_abs"] for r in ranks],
+         ssgd_state_bytes=ssgd_bytes, zero_state_bytes=zero_bytes,
+         sma_check={"worst_tol_ratio": sma_err, "rtol": SMA_RTOL, "atol": SMA_ATOL,
+                    "ranks_apart_before_max_abs": spread},
+         per_rank=[{"rank": r["rank"], **{
+             name: {k: w[k] for k in ("losses", "steady_step_ms", "step_ms", "timed_step_ms",
+                                      "gloo_ms_per_step", "start_mem_gb", "peak_mem_gb")}
+             for name, w in r["wrappers"].items()}} for r in ranks],
+         ada_bitwise_equal=[{k: v for k, v in r["wrappers"]["ada"].items()
+                             if k.startswith("bitwise")} for r in ranks],
+         seconds=time.perf_counter() - t0)
+    for r in ranks:
+        for name, w in r["wrappers"].items():
+            check(all(math.isfinite(x) for x in w["losses"]),
+                  f"rank {r['rank']} {name}: non-finite loss {w['losses']}")
+        # deterministic kernels, and at two ranks the reduce-scatter adds the
+        # same two gradients as the all-reduce: ZeRO is S-SGD to the bit,
+        # once S-SGD is itself to the bit
+        check(r["ssgd_vs_ssgd_again_max_abs"] == 0.0,
+              f"rank {r['rank']}: two S-SGD runs differ by "
+              f"{r['ssgd_vs_ssgd_again_max_abs']}: the kernels are not deterministic")
+        check(r["zero_vs_ssgd_max_abs"] == 0.0,
+              f"rank {r['rank']}: ZeRO vs S-SGD differ by {r['zero_vs_ssgd_max_abs']}")
+        ada = r["wrappers"]["ada"]
+        check(ada["bitwise_equal_after_switch"] and ada["bitwise_equal_after_last_step"],
+              f"rank {r['rank']}: AdaptiveSGD's ranks differ after the switch")
+    for b in zero_bytes:
+        check(b <= ssgd_bytes / OPT_RANKS + pad_bytes,
+              f"ZeRO state {b} bytes > half of S-SGD's {ssgd_bytes} plus padding")
+    check(spread > 0.0, "SMA's ranks did not diverge before the checked step")
+    check(sma_err <= 1.0, f"SMA step vs its formula: worst error/tolerance {sma_err}")
+
+
 def main() -> int:
     import torch
 
@@ -632,6 +960,8 @@ def main() -> int:
     train = train_phase(fa)
     profile_phase(train["step_ms"])
     ring_launches = ring_phase()
+    resnet_phase(smi)
+    optimizers_phase(smi)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():

@@ -12,7 +12,9 @@ per buffer.
 sends and receives. gloo's send and receive take host memory only, so on a
 gloo group a CUDA tensor travels through pinned host buffers; this is the
 only place the port stages through the host, and it is chosen by the
-group's backend.
+group's backend. gloo's all-reduce, broadcast, reduce-scatter and tiled
+all-gather take CUDA tensors themselves (the last two checked on an H100
+with torch 2.11).
 """
 
 from __future__ import annotations
@@ -117,10 +119,55 @@ def all_gather(x: torch.Tensor, axis: int = 0, tiled: bool = False,
 
 def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
     """`root`'s value on every rank (a real broadcast, not a masked sum)."""
-    y = x.clone()
-    if world_size(group) > 1:
-        dist.broadcast(y, src=root, group=group)
-    return y
+    return group_broadcast([x], root, group)[0]
+
+
+def group_broadcast(xs: Sequence[torch.Tensor], root: int = 0,
+                    group=None) -> List[torch.Tensor]:
+    """`root`'s (a rank of the group) value of each of `xs` on every rank:
+    one flattened broadcast per dtype."""
+    if world_size(group) == 1:
+        return [x.clone() for x in xs]
+    src = root if group is None else dist.get_global_rank(group, root)
+    out: List[torch.Tensor] = [None] * len(xs)
+    for idx in _buckets(xs).values():
+        flat = fuse([xs[i] for i in idx])
+        dist.broadcast(flat, src=src, group=group)
+        for i, part in zip(idx, defuse(flat, [xs[i].shape for i in idx])):
+            out[i] = part
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group=None, tiled: bool = True) -> torch.Tensor:
+    """The sum over the group of a flat `x` whose length is a multiple of
+    the group's size n, cut into n contiguous shards; rank i keeps shard i
+    (`lax.psum_scatter(x, scatter_dimension=0, tiled=True)`)."""
+    if not tiled or x.dim() != 1:
+        raise ValueError("reduce_scatter takes a flat tensor and tiled=True only")
+    n = world_size(group)
+    if x.numel() % n:
+        raise ValueError(f"length {x.numel()} does not split into {n} shards")
+    if n == 1:
+        return x.clone()
+    out = x.new_empty(x.numel() // n)
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's flat `x`, concatenated in rank order, written into the
+    preallocated flat `out` of n times x's length (`lax.all_gather(...,
+    tiled=True)`); returns `out`."""
+    n = world_size(group)
+    if out.numel() != n * x.numel() or out.dtype != x.dtype:
+        raise ValueError(f"out holds {out.numel()} {out.dtype}, want {n} x {x.numel()} "
+                         f"{x.dtype}")
+    x = x.reshape(-1)
+    if n == 1:
+        out.copy_(x)
+    else:
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
 
 
 # pinned host buffers of the gloo ring, reused from shift to shift: one

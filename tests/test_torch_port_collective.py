@@ -9,6 +9,7 @@ import jax
 import numpy as np
 import pytest
 import torch.multiprocessing as mp
+from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from kungfu_tpu.base.ops import ReduceOp as JReduceOp
@@ -40,6 +41,14 @@ CASES = {
                            lambda x, xi, y: jcol.all_gather(x, "dp", axis=1, tiled=True)),
     "broadcast_root1": (lambda c, R, x, xi, y: c.broadcast(x, root=1),
                         lambda x, xi, y: jcol.broadcast(x, "dp", root=1)),
+    "group_broadcast_root1": (lambda c, R, x, xi, y: c.group_broadcast([x, xi, y], root=1),
+                              lambda x, xi, y: jcol.group_broadcast([x, xi, y], "dp", root=1)),
+    "reduce_scatter": (lambda c, R, x, xi, y: c.reduce_scatter(x.reshape(-1)),
+                       lambda x, xi, y: lax.psum_scatter(x.reshape(-1), "dp",
+                                                         scatter_dimension=0, tiled=True)),
+    "gather_into": (lambda c, R, x, xi, y: c.all_gather_into(x.new_empty(WORLD * x.numel()),
+                                                             x.reshape(-1)),
+                    lambda x, xi, y: jcol.all_gather(x.reshape(-1), "dp", tiled=True)),
 }
 
 

@@ -256,3 +256,156 @@ def test_cuda_nccl_refuses_two_ranks_on_one_card():
     collective."""
     _need_card()
     _spawn(_nccl_worker, 2, "the two NCCL ranks")
+
+
+def _resnet_pair(images: int, dtype):
+    """ResNet-50 with every norm scale 1 (so every residual branch is live),
+    in `dtype` on the card and in f32 on the CPU, and one seeded NHWC batch."""
+    from kungfu_tpu_torch.models import resnet
+
+    card = resnet.init_resnet(resnet.resnet50(dtype=dtype), torch.Generator().manual_seed(0),
+                              "cuda")
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+    cpu = resnet.resnet50(dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.randn(images, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    return card, cpu.to(memory_format=torch.channels_last), x
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_bf16_matches_cpu_f32():
+    """ResNet-50 at full width, 2 images of 224x224, eval mode: the logits
+    in bf16 on the card within 2e-2 + 2e-2 |ref| of f32 on the CPU."""
+    _need_card()
+    card, cpu, x = _resnet_pair(2, torch.bfloat16)
+    with torch.no_grad():
+        got = card(x.cuda(), train=False)
+        want = cpu(x, train=False)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_train_mode_matches_cpu():
+    """Training mode normalizes by the batch's own statistics, which at 2
+    images are 98 values a channel in the last stage: bf16's rounding
+    there moves the logits by up to 0.3 (an H100 run), so this case holds
+    the card's f32 path (TF32 off) against the CPU within 1e-3, logits and
+    new running statistics."""
+    _need_card()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, cpu, x = _resnet_pair(2, torch.float32)
+        with torch.no_grad():
+            got = card(x.cuda(), train=True)
+            want = cpu(x, train=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    for (name, a), b in zip(card.named_buffers(), cpu.buffers()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_batch_norm_running_stats_are_flaxs(dtype):
+    """The norm reads its batch statistics from the private op
+    `_native_batch_norm_legit`: one train-mode call on a channels-last
+    activation on the card moves the running mean and variance to flax's
+    0.9 old + 0.1 (the batch's mean and biased variance, in f32), within
+    rtol 1e-5."""
+    _need_card()
+    from kungfu_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(8, 64, 28, 28, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    norm = BatchNorm(64).cuda()
+    norm(x, train=True)
+    xf = x.float()
+    torch.testing.assert_close(norm.mean, 0.1 * xf.mean(dim=(0, 2, 3)), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(norm.var, 0.9 + 0.1 * xf.var(dim=(0, 2, 3), unbiased=False),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _gloo_collective_worker(rank, peers):
+    """reduce_scatter and all_gather_into on CUDA tensors of two gloo ranks
+    that share card 0, against the sums and concatenations they must give."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+
+    device = initialize_device_plane(backend="gloo")
+    n = len(peers)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            parts = [torch.arange(12, device=device, dtype=dtype) * (r + 1) for r in range(n)]
+            got = collective.reduce_scatter(parts[rank], None)
+            assert got.device == device and got.dtype == dtype
+            torch.testing.assert_close(got, sum(parts).view(n, -1)[rank])
+            out = torch.empty(n * 12, device=device, dtype=dtype)
+            assert collective.all_gather_into(out, parts[rank], None) is out
+            torch.testing.assert_close(out, torch.cat(parts))
+        torch.cuda.synchronize()
+    finally:
+        shutdown_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_reduce_scatter_and_all_gather_on_one_card():
+    _need_card()
+    _spawn(_gloo_collective_worker, 2, "the two gloo ranks")
+
+
+def _zero_nccl_worker(rank, peers):
+    """ZeRO-1 against S-SGD over NCCL, one card a rank: an MLP whose leaves
+    do not split evenly, 3 AdamW steps on per-rank batches."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS=str(rank))
+    from kungfu_tpu_torch.models.mlp import init_mlp, mlp_loss
+    from kungfu_tpu_torch.optimizers import core
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+    from kungfu_tpu_torch.parallel.dp import make_train_step
+    from kungfu_tpu_torch.parallel.mesh import make_mesh
+
+    device = initialize_device_plane()
+    try:
+        session = make_mesh(device)
+        assert "nccl" in session.describe()
+        finals = {}
+        for name in ("ssgd", "zero"):
+            model = init_mlp(torch.Generator().manual_seed(0), 77, 33, 10, device=device)
+            params = list(model.parameters())
+
+            def base(ps):
+                return torch.optim.AdamW(ps, lr=1e-2, weight_decay=1e-2)
+
+            opt = (core.zero_sharded(base, params, session) if name == "zero"
+                   else core.synchronous_sgd(base(params), session))
+            step = make_train_step(lambda m, b: mlp_loss(m.tree(), b), opt, session)
+            gen = torch.Generator(device=device).manual_seed(rank)
+            for _ in range(3):
+                x = torch.randn(8, 77, device=device, generator=gen)
+                y = torch.randint(0, 10, (8,), device=device, generator=gen)
+                step(model, (x, y))
+            finals[name] = torch.cat([p.detach().reshape(-1) for p in params])
+            if name == "zero":
+                m = [-(-p.numel() // session.size) for p in params]
+                assert [s.numel() for s in opt.shards] == m
+        torch.testing.assert_close(finals["zero"], finals["ssgd"], rtol=1e-5, atol=1e-6)
+    finally:
+        shutdown_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_zero_over_nccl_matches_ssgd():
+    """Needs two or more cards (NCCL refuses two ranks on one)."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("ZeRO over NCCL needs 2+ cards")
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    _spawn(_zero_nccl_worker, n, f"the {n} NCCL ZeRO ranks")

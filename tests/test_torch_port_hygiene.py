@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kungfu_tpu_torch.ops.flash_attention" in res["imported"]
     assert "kungfu_tpu_torch.examples.bert_ssgd" in res["imported"]
     assert "kungfu_tpu_torch.ops.ring_attention" in res["imported"]
-    assert len(res["imported"]) >= 14
+    assert "kungfu_tpu_torch.models.resnet" in res["imported"]
+    assert "kungfu_tpu_torch.bench" in res["imported"]
+    assert len(res["imported"]) >= 21
 
 
 def test_every_module_of_the_slice_exists():
@@ -48,14 +50,18 @@ def test_every_module_of_the_slice_exists():
                 "ops.collective", "base.ops",
                 "models.transformer", "models.convert", "parallel.distributed",
                 "parallel.mesh", "parallel.dp", "optimizers.core", "initializer",
-                "examples.bert_ssgd"):
+                "examples.bert_ssgd", "optimizers", "models.resnet", "models.mlp",
+                "datasets", "datasets.idx", "examples.mnist_slp", "bench"):
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
 
 def _entry_points():
-    from kungfu_tpu_torch.examples import bert_ssgd
+    from kungfu_tpu_torch import bench
+    from kungfu_tpu_torch.examples import bert_ssgd, mnist_slp
+    from kungfu_tpu_torch.models.mlp import init_mlp
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet18_thin
     from kungfu_tpu_torch.models.transformer import TransformerConfig, init_transformer
     from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
     from kungfu_tpu_torch.parallel.mesh import make_mesh
@@ -67,12 +73,17 @@ def _entry_points():
         "make_mesh": lambda: make_mesh(),
         "make_mesh_2d": lambda: make_mesh(shape={"dp": 1, "sp": 1}),
         "bert_ssgd.main": lambda: bert_ssgd.main(["--steps", "1", "--batch", "2"]),
+        "init_resnet": lambda: init_resnet(resnet18_thin()),
+        "init_mlp": lambda: init_mlp(),
+        "mnist_slp.main": lambda: mnist_slp.main(["--epochs", "1"]),
+        "bench.main": lambda: bench.main(["--batch", "2", "--image-size", "32"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_transformer",
                                   "initialize_device_plane", "make_mesh", "make_mesh_2d",
-                                  "bert_ssgd.main"])
+                                  "bert_ssgd.main", "init_resnet", "init_mlp",
+                                  "mnist_slp.main", "bench.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
