@@ -13,7 +13,8 @@ Phases, each printing one JSON line:
   kernel   each flash-attention kernel (forward with O and LSE, dQ with
            delta, dK/dV) against its plain PyTorch version on the same inputs
            at B=8, H=12, hd=64 in bf16: S=512 causal and not, and a ragged
-           S=500; then times: kernel and library (SDPA forward, and SDPA's
+           S=500; and at the parallel phase's shapes, causal S=512: B=2,
+           H=12 (a pipeline microbatch) and B=8, H=6 (a tp rank); then times: kernel and library (SDPA forward, and SDPA's
            backward alone for the dQ + dK/dV pair) device times by
            torch.profiler, warm and cold (L2 flushed by a 128 MB write before
            each call); plain versions, and each kernel's whole call with its
@@ -57,7 +58,27 @@ Phases, each printing one JSON line:
            SMA's second step against its formula from both ranks'
            parameters, and AdaptiveSGD's ranks bitwise equal after the
            switch; per rank the steady step ms, the gloo ms of a step and
-           the peak memory.
+           the peak memory;
+  monitors  in the same workers, 3 steps each of S-SGD with the gradient-
+           noise-scale monitor and with the gradient-variance monitor
+           (interval 1); gate: the first step's g2, s and variance against
+           their f64 recomputation from both ranks' saved gradients; the
+           steady step ms and the gradient average's ms of each beside
+           S-SGD's (the monitors' overhead);
+  parallel two gloo workers sharing card 0 (results in
+           `build/chip_smoke_par/`): BERT-base as a causal LM on one fixed
+           8 x 512 batch through the GPipe pipeline (pp 2, 6 layers a stage,
+           4 microbatches, 4 AdamW steps) and tensor parallelism (dp 1 x
+           tp 2, 6 heads a rank, 3 AdamW steps), flash core; gates: each
+           first loss within 1e-4 relative of the dense flash path in one
+           process, exact flash launches a step a rank (pipeline 24, TP 12),
+           finite falling losses; then top-2 MoE over ep 2 at D 768, F 3072,
+           4096 tokens a rank, 4 experts a rank, capacity factor 1.25, bf16,
+           forward and backward, against the plain MoE of both shards in one
+           process (out, dx and the router gradient per element within 2e-2,
+           the expert gradients within 2e-2 of their scale), dropped tokens
+           printed; per path the step ms and its split between collectives
+           and the rest.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -69,7 +90,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -96,6 +116,20 @@ SMA_ALPHA = 0.1
 # one SMA step against its formula recomputed in the parent: the same
 # operations in another order, a few f32 roundings apart
 SMA_RTOL, SMA_ATOL = 1e-6, 1e-7
+MONITOR_RTOL = 1e-5  # the monitors' first step against f64 (see monitors_check)
+MONITOR_TURNS = 7  # gradient averages timed a wrapper, in turns
+PAR_RANKS = 2
+PP_STEPS, PP_MICRO = 4, 4
+TP_STEPS = 3
+PAR_DEADLINE_S = 400
+PAR_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_par"
+# pipeline's and TP's first loss against the dense flash path in one
+# process: the ring's limit (same model, same batch, another split of the
+# same products)
+PAR_LOSS_RTOL = 1e-4
+MOE_D, MOE_F, MOE_T, MOE_EPD, MOE_CF, MOE_AUX_W = 768, 3072, 4096, 4, 1.25, 0.01
+MOE_SHARED = 0.5  # the tokens' common component
+MOE_GRAD_TOL = 2e-2  # of the tensor's largest |value|: the expert weight gradients
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 KERNEL_SOURCE = "kungfu_tpu_torch/csrc/flash_attention.cu"
@@ -219,8 +253,14 @@ def kernel_phase(fa) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    for causal, s in ((True, S), (False, S), (True, S_RAGGED)):
-        q, k, v, do = (torch.randn(B * H, s, HD, device=dev, dtype=torch.bfloat16,
+    # (path, batch, heads, causal, S): the dense path's shapes, then those
+    # the parallel phase gives the kernels (a pipeline microbatch of
+    # B / PP_MICRO with all heads; a tp rank's H / PAR_RANKS heads)
+    cases = (("dense", B, H, True, S), ("dense", B, H, False, S),
+             ("dense", B, H, True, S_RAGGED), ("pipeline", B // PP_MICRO, H, True, S),
+             ("tp", B, H // PAR_RANKS, True, S))
+    for path, b, h, causal, s in cases:
+        q, k, v, do = (torch.randn(b * h, s, HD, device=dev, dtype=torch.bfloat16,
                                    generator=gen) for _ in range(4))
         scale = 1.0 / math.sqrt(HD)
         o, lse = fa._forward_cuda(q, k, v, causal, scale)
@@ -238,8 +278,8 @@ def kernel_phase(fa) -> dict:
         for name, keys in (("flash_fwd", ("O", "LSE")), ("flash_dq", ("dQ", "delta")),
                            ("flash_dkv", ("dK", "dV"))):
             errs[name] = max([errs[name]] + [res[key]["max_abs_err"] for key in keys])
-        emit("kernel_check", B=B, H=H, S=s, hd=HD, causal=causal, dtype="bfloat16",
-             rtol=RTOL, atol=ATOL, results=res)
+        emit("kernel_check", path=path, B=b, H=h, S=s, hd=HD, causal=causal,
+             dtype="bfloat16", rtol=RTOL, atol=ATOL, results=res)
 
     # times at the main path's shape: causal, S=512
     q, k, v, do = (torch.randn(B * H, S, HD, device=dev, dtype=torch.bfloat16,
@@ -584,13 +624,14 @@ def ring_phase() -> dict:
     import torch
 
     from kungfu_tpu_torch.models.transformer import TransformerConfig
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     RING_OUT.mkdir(parents=True, exist_ok=True)
     for f in RING_OUT.glob("rank*.json"):
         f.unlink()
-    spawn_world(ring_worker, RING_RANKS, RING_DEADLINE_S, "ring")
+    spawn_world(ring_worker, RING_RANKS, RING_DEADLINE_S)
     ranks = [json.loads((RING_OUT / f"rank{r}.json").read_text()) for r in range(RING_RANKS)]
     cfg = TransformerConfig.bert_base()
     r0 = ranks[0]
@@ -721,6 +762,8 @@ def _opt_rank(rank: int, peers) -> dict:
 
     from kungfu_tpu_torch.initializer import broadcast_variables
     from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.monitor import monitor_gradient_noise_scale, monitor_gradient_variance
+    from kungfu_tpu_torch.monitor.noise_scale import noise_scale
     from kungfu_tpu_torch.ops import collective
     from kungfu_tpu_torch.optimizers import core
     from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
@@ -752,6 +795,9 @@ def _opt_rank(rank: int, peers) -> dict:
     def flat():
         return torch.cat([p.detach().reshape(-1) for p in params])
 
+    def flat_grads():
+        return torch.cat([p.grad.float().reshape(-1) for p in params])
+
     def bitwise_equal_across_ranks(t) -> bool:
         same = torch.tensor([float(torch.equal(collective.broadcast(t, 0, group), t))],
                             device=device)
@@ -761,10 +807,14 @@ def _opt_rank(rank: int, peers) -> dict:
                    "all_gather_into", "all_reduce")
     out = {"rank": rank, "device": str(device), "backend": session.describe(), "wrappers": {}}
     finals = {}
-    for name in ("ssgd", "ssgd_again", "zero", "sma", "ada"):
+    for name in ("ssgd", "ssgd_again", "zero", "sma", "ada", "gns", "var"):
         model.load_state_dict(init)
         if name.startswith("ssgd"):
             opt = core.synchronous_sgd(sgd(params), session)
+        elif name == "gns":
+            opt = monitor_gradient_noise_scale(sgd(params), session, OPT_BATCH, interval=1)
+        elif name == "var":
+            opt = monitor_gradient_variance(sgd(params), session, interval=1)
         elif name == "zero":
             opt = core.zero_sharded(sgd, params, session)
         elif name == "sma":
@@ -780,7 +830,20 @@ def _opt_rank(rank: int, peers) -> dict:
             if name == "sma" and i == 1:  # the step the parent checks
                 before = flat()
             t0 = time.perf_counter()
-            losses.append(float(step(model, batches[i])))  # waits for the device
+            if name in ("gns", "var") and i == 0:
+                # the step the parent checks: this rank's gradients before
+                # the average, and the monitor's estimate after the step
+                opt.zero_grad()
+                loss = resnet_loss(model, batches[i])
+                loss.backward()
+                torch.save(flat_grads().cpu(), OPT_OUT / f"{name}_grads_rank{rank}.pt")
+                opt.step()
+                w["estimate"] = ({"g2": opt.gns.g2_ema.item(), "s": opt.gns.s_ema.item(),
+                                  "noise_scale": noise_scale(opt.gns).item()}
+                                 if name == "gns" else {"variance": opt.variance.item()})
+                losses.append(float(collective.all_average(loss.detach(), group)))
+            else:
+                losses.append(float(step(model, batches[i])))  # waits for the device
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if name == "sma" and i == 1:
                 buf = torch.cat([opt.base.state[p]["momentum_buffer"].reshape(-1)
@@ -798,20 +861,7 @@ def _opt_rank(rank: int, peers) -> dict:
         # one more step, after the gates' readings, with each collective
         # timed from a drained stream: the gloo ms of a step
         spent = {"ms": 0.0}
-        saved = {n: getattr(collective, n) for n in timed_names}
-
-        def timed(fn):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize(device)
-                t = time.perf_counter()
-                try:
-                    return fn(*args, **kwargs)
-                finally:
-                    spent["ms"] += (time.perf_counter() - t) * 1e3
-            return run
-
-        for n, fn in saved.items():
-            setattr(collective, n, timed(fn))
+        saved = timed_calls(collective, timed_names, spent, device)
         try:
             t0 = time.perf_counter()
             float(step(model, batches[0]))
@@ -823,10 +873,25 @@ def _opt_rank(rank: int, peers) -> dict:
         w.update(losses=losses, step_ms=step_ms, steady_step_ms=steady[len(steady) // 2],
                  timed_step_ms=timed_step_ms, gloo_ms_per_step=spent["ms"])
         out["wrappers"][name] = w
+    # the monitors' own cost: the gradient average alone (S-SGD's, GNS's,
+    # the variance's), on the gradients of the last step, in turns
+    avg_ms = {"ssgd": [], "gns": [], "var": []}
+    wrappers = {"ssgd": core.synchronous_sgd(sgd(params), session),
+                "gns": monitor_gradient_noise_scale(sgd(params), session, OPT_BATCH),
+                "var": monitor_gradient_variance(sgd(params), session)}
+    for _ in range(MONITOR_TURNS):
+        for name, opt in wrappers.items():
+            session.barrier()
+            t0 = time.perf_counter()
+            opt.average_gradients()
+            torch.cuda.synchronize(device)
+            avg_ms[name].append((time.perf_counter() - t0) * 1e3)
+    out["average_ms"] = {k: sorted(v)[len(v) // 2] for k, v in avg_ms.items()}
     out["zero_vs_ssgd_max_abs"] = (finals["zero"] - finals["ssgd"]).abs().max().item()
     out["ssgd_vs_ssgd_again_max_abs"] = (finals["ssgd_again"] - finals["ssgd"]).abs().max().item()
     out["param_count"] = finals["ssgd"].numel()
     out["leaves"] = len(params)
+    out["leaf_sizes"] = [p.numel() for p in params]
     return out
 
 
@@ -840,30 +905,6 @@ def opt_worker(rank: int, peers) -> None:
         shutdown_device_plane()
 
 
-def spawn_world(worker, n: int, deadline_s: float, what: str) -> None:
-    """Run `worker(rank, peers)` in n spawned processes; raise if they do
-    not finish in `deadline_s` (and kill what is left)."""
-    import torch.multiprocessing as mp
-
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
-    for s in socks:
-        s.close()
-    ctx = mp.start_processes(worker, args=(peers,), nprocs=n, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + deadline_s
-    try:
-        while not ctx.join(timeout=1):
-            check(time.monotonic() < deadline, f"the {what} workers did not finish in "
-                  f"{deadline_s} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-
-
 def optimizers_phase(smi: str) -> None:
     """S-SGD, ZeRO-1, SMA and AdaptiveSGD on two gloo ranks sharing card 0,
     ResNet-50 at full width, 16 images a rank; the parent checks ZeRO
@@ -871,12 +912,16 @@ def optimizers_phase(smi: str) -> None:
     and AdaptiveSGD's ranks bitwise equal after the switch."""
     import torch
 
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     OPT_OUT.mkdir(parents=True, exist_ok=True)
-    for f in list(OPT_OUT.glob("rank*.json")) + list(OPT_OUT.glob("sma_rank*.pt")):
+    for f in OPT_OUT.glob("*.json"):
         f.unlink()
-    spawn_world(opt_worker, OPT_RANKS, OPT_DEADLINE_S, "optimizers")
+    for f in OPT_OUT.glob("*.pt"):
+        f.unlink()
+    spawn_world(opt_worker, OPT_RANKS, OPT_DEADLINE_S)
     ranks = [json.loads((OPT_OUT / f"rank{r}.json").read_text()) for r in range(OPT_RANKS)]
 
     # SMA's second step against p + u + alpha (mean(p) - p), u = -lr * buf
@@ -924,11 +969,353 @@ def optimizers_phase(smi: str) -> None:
         ada = r["wrappers"]["ada"]
         check(ada["bitwise_equal_after_switch"] and ada["bitwise_equal_after_last_step"],
               f"rank {r['rank']}: AdaptiveSGD's ranks differ after the switch")
+    monitors_check(smi, ranks)
     for b in zero_bytes:
         check(b <= ssgd_bytes / OPT_RANKS + pad_bytes,
               f"ZeRO state {b} bytes > half of S-SGD's {ssgd_bytes} plus padding")
     check(spread > 0.0, "SMA's ranks did not diverge before the checked step")
     check(sma_err <= 1.0, f"SMA step vs its formula: worst error/tolerance {sma_err}")
+
+
+def monitors_check(smi: str, ranks) -> None:
+    """The monitors' first step against the estimators recomputed in f64
+    from both ranks' saved gradients, and their cost over S-SGD.
+
+    g2 and s are differences of nearly equal terms (B |g_big|^2 and
+    b |g_small|^2; |g_small|^2 and |g_big|^2), so f32 rounding of the
+    squared norms comes back multiplied by the ratio of the terms to the
+    difference: each is held within MONITOR_RTOL of the terms it is the
+    difference of (the relative error to its own value is printed too);
+    the variance, a sum of norms, within MONITOR_RTOL of itself."""
+    import torch
+
+    b, n = OPT_BATCH, OPT_RANKS
+    B = b * n
+    grads = [torch.load(OPT_OUT / f"gns_grads_rank{r}.pt").double() for r in range(n)]
+    gs = sum(g.square().sum() for g in grads).item() / n
+    gb = (sum(grads) / n).square().sum().item()
+    g2 = (B * gb - b * gs) / (B - b)
+    s = (gs - gb) / (1 / b - 1 / B)
+    grads = [torch.load(OPT_OUT / f"var_grads_rank{r}.pt").double() for r in range(n)]
+    mean = sum(grads) / n
+    var = (sum(g.square() for g in grads) / n - mean.square())
+    del grads, mean
+    # the port sums the Frobenius norm leaf by leaf; the leaves' split is
+    # not saved, so the reference takes the norm over each leaf's slice
+    bounds = ranks[0]["leaf_sizes"]
+    variance = sum(v.square().sum().sqrt().item()
+                   for v in var.split(bounds))
+    del var
+    gns = ranks[0]["wrappers"]["gns"]["estimate"]
+    got_var = ranks[0]["wrappers"]["var"]["estimate"]["variance"]
+    errs = {"g2": abs(gns["g2"] - g2) / ((B * gb + b * gs) / (B - b)),
+            "s": abs(gns["s"] - s) / ((gs + gb) / (1 / b - 1 / B)),
+            "variance": abs(got_var - variance) / variance}
+    rel = {"g2": abs(gns["g2"] - g2) / abs(g2), "s": abs(gns["s"] - s) / abs(s),
+           "variance": errs["variance"]}
+
+    def steady(name):
+        return [r["wrappers"][name]["steady_step_ms"] for r in ranks]
+
+    base = [min(a, c) for a, c in zip(steady("ssgd"), steady("ssgd_again"))]
+    emit("monitors", nvidia_smi=smi, model="resnet50", images_per_rank=b, ranks=n, interval=1,
+         estimate={"g2_ema": gns["g2"], "s_ema": gns["s"], "noise_scale": gns["noise_scale"],
+                   "variance": got_var},
+         reference_f64={"g2": g2, "s": s, "noise_scale": s / g2, "variance": variance,
+                        "gs": gs, "gb": gb},
+         err_vs_terms=errs, rel_err=rel, rtol=MONITOR_RTOL,
+         ssgd_steady_ms=base, gns_steady_ms=steady("gns"), var_steady_ms=steady("var"),
+         gns_overhead_ms=[g - s_ for g, s_ in zip(steady("gns"), base)],
+         var_overhead_ms=[v - s_ for v, s_ in zip(steady("var"), base)],
+         gloo_ms_per_step={name: [r["wrappers"][name]["gloo_ms_per_step"] for r in ranks]
+                           for name in ("ssgd", "gns", "var")},
+         average_ms=[r["average_ms"] for r in ranks],
+         average_overhead_ms={name: [r["average_ms"][name] - r["average_ms"]["ssgd"]
+                                     for r in ranks] for name in ("gns", "var")})
+    for r in ranks:
+        check(r["wrappers"]["gns"]["estimate"] == gns and
+              r["wrappers"]["var"]["estimate"]["variance"] == got_var,
+              f"rank {r['rank']}'s monitor state differs from rank 0's")
+    for k, e in errs.items():
+        check(e <= MONITOR_RTOL, f"monitor {k} vs its f64 recomputation: {e} > {MONITOR_RTOL}")
+
+
+def timed_calls(module, names, spent, device):
+    """Wrap `module.<name>` for each name so that its host time, from a
+    drained stream, adds to spent["ms"]; returns the originals."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent["ms"] += (time.perf_counter() - t) * 1e3
+        return run
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(fn))
+    return saved
+
+
+def _run_steps(step, model, batch, steps, fa, device, coll_names):
+    """`steps` counted steps (launches from 0), then one more with the
+    collectives timed: (losses, step ms, launches, split of the timed step)."""
+    import torch
+
+    from kungfu_tpu_torch.ops import collective
+
+    losses, step_ms = [], []
+    fa.reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))  # waits for the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    spent = {"ms": 0.0}
+    saved = timed_calls(collective, coll_names, spent, device)
+    try:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        float(step(model, batch))
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in saved.items():
+            setattr(collective, n, fn)
+    return losses, step_ms, launches, {"step_ms": total, "collectives_ms": spent["ms"],
+                                       "rest_ms": total - spent["ms"]}
+
+
+def _par_rank(rank: int, peers) -> dict:
+    """One rank of the parallel phase: BERT-base through the pipeline
+    (pp 2) and tensor parallelism (dp 1 x tp 2), then MoE over ep 2."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch.examples import bert_ssgd
+    from kungfu_tpu_torch.models import convert
+    from kungfu_tpu_torch.models import transformer as tr
+    from kungfu_tpu_torch.ops import collective, moe
+    from kungfu_tpu_torch.ops import flash_attention as fa
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
+    from kungfu_tpu_torch.parallel.dp import make_train_step
+    from kungfu_tpu_torch.parallel.mesh import make_mesh
+    from kungfu_tpu_torch.parallel.pipeline import make_pp_transformer_loss, pipeline_sgd
+    from kungfu_tpu_torch.parallel.sharded import make_sharded_train_step, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize_device_plane(backend="gloo")
+    out = {"rank": rank, "device": str(device)}
+    cfg = tr.TransformerConfig.bert_base()
+    full = convert.to_jax(tr.init_transformer(cfg, torch.Generator().manual_seed(0), "cpu"))
+    _, tokens, _ = bert_ssgd.synthetic_batch(np.random.default_rng(1234), cfg, B, S + 1)
+    tokens = torch.from_numpy(tokens).to(device)
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    if rank == 0:  # the yardstick: the dense flash path, full batch, one process
+        with torch.no_grad():
+            dense = convert.transformer_from_jax(full, cfg, device)
+            out["dense_first_loss"] = tr.transformer_loss(dense.tree(), batch, cfg,
+                                                          core=bert_ssgd.flash_core).item()
+            del dense
+
+    def adamw(ps):
+        return torch.optim.AdamW(ps, lr=3e-4, weight_decay=0.01)
+
+    # (a) GPipe over pp 2: 6 layers a stage, 4 microbatches of 2
+    session = make_mesh(device, shape={"pp": PAR_RANKS})
+    stage = tr.Transformer(cfg, convert.pp_stage(full, session.axis_index("pp"),
+                                                 PAR_RANKS)).to(device)
+    opt = pipeline_sgd(adamw(list(stage.parameters())), stage, session)
+    step = make_train_step(make_pp_transformer_loss(cfg, session, PP_MICRO,
+                                                    core=bert_ssgd.flash_core), opt, session)
+    session.barrier()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms, launches, split = _run_steps(
+        step, stage, batch, PP_STEPS, fa, device, ("rotate", "group_all_reduce", "all_reduce"))
+    steady = sorted(step_ms[1:])
+    out["pipeline"] = {"losses": losses, "step_ms": step_ms,
+                       "steady_step_ms": steady[len(steady) // 2], "launches": launches,
+                       "split": split,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2**30}
+    del stage, opt, step
+
+    # (b) tensor parallelism over dp 1 x tp 2: 6 heads, 1536 hidden units and
+    # 15261 vocabulary rows a rank
+    session = make_mesh(device, shape={"dp": 1, "tp": PAR_RANKS})
+    specs = tr.param_pspecs(cfg)
+    whole = convert.tp_layout(convert.transformer_params_from_jax(full), PAR_RANKS)
+    shards = tr.Transformer(cfg, shard_params(whole, session, specs)).to(device)
+
+    def tp_loss(model, b):
+        return tr.tp_transformer_loss(model.tree(), b, cfg, session, core=bert_ssgd.flash_core)
+
+    step = make_sharded_train_step(tp_loss, adamw(list(shards.parameters())), session, specs)
+    session.barrier()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms, launches, split = _run_steps(
+        step, shards, batch, TP_STEPS, fa, device, ("all_reduce", "group_all_reduce"))
+    steady = sorted(step_ms[1:])
+    out["tp"] = {"losses": losses, "step_ms": step_ms,
+                 "steady_step_ms": steady[len(steady) // 2], "launches": launches,
+                 "split": split, "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2**30}
+    del shards, step, whole, full
+
+    # (c) top-2 MoE over ep 2 at BERT-base's FFN width, bf16, forward and
+    # backward, against the plain MoE of every shard in one process. bf16
+    # products keep f32 sums (no bf16 split-K partial sums), so the two
+    # versions differ only where they round their bf16 activations
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    E = PAR_RANKS * MOE_EPD
+    gen = torch.Generator(device=device).manual_seed(5)
+    # tokens share a component, as activations do, so the router favours
+    # some experts over others and the capacity drops tokens (independent
+    # tokens load every expert within a few % of T / E: no drops)
+    xs = (torch.randn(PAR_RANKS, MOE_T, MOE_D, device=device, generator=gen)
+          + MOE_SHARED).bfloat16()
+    rw = torch.randn(MOE_D, E, device=device, generator=gen) / MOE_D ** 0.5
+    w_in = torch.randn(E, MOE_D, MOE_F, device=device, generator=gen) / MOE_D ** 0.5
+    w_out = torch.randn(E, MOE_F, MOE_D, device=device, generator=gen) / MOE_F ** 0.5
+    cot = torch.randn(PAR_RANKS, MOE_T, MOE_D, device=device, generator=gen)
+    mine = slice(rank * MOE_EPD, (rank + 1) * MOE_EPD)
+
+    def moe_step():
+        leaves = [xs[rank].clone().requires_grad_(), rw.clone().requires_grad_(),
+                  w_in[mine].clone().requires_grad_(), w_out[mine].clone().requires_grad_()]
+        y, aux = moe.moe_ffn(*leaves, None, top_k=2, capacity_factor=MOE_CF)
+        loss = (y.float() * cot[rank]).sum() + MOE_AUX_W * aux / PAR_RANKS
+        return [y, aux, *torch.autograd.grad(loss, leaves)]
+
+    got = moe_step()
+    times, spent = [], {"ms": 0.0}
+    for i in range(4):  # 3 steps, then one with the exchanges timed
+        saved = {}
+        if i == 3:
+            saved = timed_calls(collective, ("_exchange", "all_reduce"), spent, device)
+        try:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            moe_step()
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for n, fn in saved.items():
+                setattr(collective, n, fn)
+    router_grad = collective.all_reduce(got[3]).cpu()  # replicated: the sum of the ranks'
+    parts = [collective.all_gather(t.detach().float().cpu(), axis=0, tiled=True)
+             for t in (got[0], got[2], got[4], got[5])]
+    out["moe"] = {"dropped": moe.dropped_tokens(xs[rank], rw, E, 2, MOE_CF),
+                  "step_ms": times[:3], "timed_step": {"step_ms": times[3],
+                                                       "collectives_ms": spent["ms"],
+                                                       "rest_ms": times[3] - spent["ms"]},
+                  "aux": got[1].item()}
+    if rank == 0:
+        leaves = [xs.clone().requires_grad_(), rw.clone().requires_grad_(),
+                  w_in.clone().requires_grad_(), w_out.clone().requires_grad_()]
+        y, aux = moe.moe_ffn_plain(*leaves, top_k=2, capacity_factor=MOE_CF)
+        loss = (y.float() * cot).sum() + MOE_AUX_W * aux
+        ref = [y, *torch.autograd.grad(loss, leaves)]
+        names = ("out", "dx", "drouter", "dw_in", "dw_out")
+        mine_all = [parts[0], parts[1], router_grad, parts[2], parts[3]]
+        ref = [w.detach().cpu().reshape(g.shape) for g, w in zip(mine_all, ref)]
+        # per element for what is per token (out, dx) and the f32 router
+        # gradient; the bf16 expert gradients sum ~1300 products an element,
+        # so where their terms cancel an element sits below the bf16 noise of
+        # its terms: those are held within MOE_GRAD_TOL of the tensor's scale
+        check_ = {n: compare(f"MoE {n} vs the plain MoE", g, w)
+                  for n, g, w in zip(names[:3], mine_all[:3], ref[:3])}
+        for n, g, w in zip(names[3:], mine_all[3:], ref[3:]):
+            err, scale = (g - w).abs().max().item(), w.abs().max().item()
+            check_[n] = {"max_abs_err": err, "scale": scale, "err_over_scale": err / scale,
+                         "finite": bool(g.isfinite().all())}
+            check(check_[n]["finite"] and err <= MOE_GRAD_TOL * scale,
+                  f"MoE {n} vs the plain MoE: {check_[n]}")
+        out["moe"]["check"] = check_
+        out["moe"]["aux_plain"] = aux.item()
+    return out
+
+
+def par_worker(rank: int, peers) -> None:
+    from kungfu_tpu_torch.parallel.distributed import shutdown_device_plane
+
+    try:
+        out = _par_rank(rank, peers)
+        (PAR_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        shutdown_device_plane()
+
+
+def parallel_phase(smi: str) -> dict:
+    """BERT-base through the GPipe pipeline and tensor parallelism, and MoE
+    at BERT-base's FFN width, on two gloo ranks sharing card 0; the parent
+    checks what they wrote. Returns each kernel's launches a step per rank
+    of the two transformer paths."""
+    import torch
+
+    from kungfu_tpu_torch.models.transformer import TransformerConfig
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    PAR_OUT.mkdir(parents=True, exist_ok=True)
+    for f in PAR_OUT.glob("rank*.json"):
+        f.unlink()
+    spawn_world(par_worker, PAR_RANKS, PAR_DEADLINE_S)
+    ranks = [json.loads((PAR_OUT / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    cfg = TransformerConfig.bert_base()
+    r0 = ranks[0]
+    dense = r0["dense_first_loss"]
+    # launches a step per rank, from the design: the pipeline runs its
+    # stage's L/P layers once for each of the M microbatches; a tp rank runs
+    # every layer once, on its H/tp heads
+    want = {"pipeline": PP_MICRO * cfg.n_layers // PAR_RANKS, "tp": cfg.n_layers}
+    steps = {"pipeline": PP_STEPS, "tp": TP_STEPS}
+    paths = {}
+    for path in ("pipeline", "tp"):
+        losses = r0[path]["losses"]
+        paths[path] = {
+            "first_loss": losses[0], "first_loss_rel_gap": abs(losses[0] - dense) / dense,
+            "losses": losses,
+            "per_rank": [{k: r[path][k] for k in ("launches", "step_ms", "steady_step_ms",
+                                                  "split", "peak_mem_gb")} | {"rank": r["rank"]}
+                         for r in ranks],
+            "launches_per_step_per_rank": want[path]}
+    moe_out = r0["moe"]
+    emit("parallel", nvidia_smi=smi, config="bert-base", batch=B, seq=S,
+         transport=f"gloo, {PAR_RANKS} ranks on card 0", dense_first_loss=dense,
+         first_loss_rtol=PAR_LOSS_RTOL,
+         pipeline={"pp": PAR_RANKS, "n_micro": PP_MICRO, "layers_per_stage":
+                   cfg.n_layers // PAR_RANKS, "steps": PP_STEPS, **paths["pipeline"]},
+         tp={"dp": 1, "tp": PAR_RANKS, "heads_per_rank": cfg.n_heads // PAR_RANKS,
+             "steps": TP_STEPS, **paths["tp"]},
+         moe={"ep": PAR_RANKS, "D": MOE_D, "F": MOE_F, "tokens_per_rank": MOE_T,
+              "experts_per_rank": MOE_EPD, "top_k": 2, "capacity_factor": MOE_CF,
+              "dtype": "bfloat16", "dropped_per_rank": [r["moe"]["dropped"] for r in ranks],
+              "aux": moe_out["aux"], "aux_plain": moe_out["aux_plain"],
+              "check": moe_out["check"], "rtol": RTOL, "atol": ATOL,
+              "per_rank": [{"rank": r["rank"], "step_ms": r["moe"]["step_ms"],
+                            "timed_step": r["moe"]["timed_step"]} for r in ranks]},
+         seconds=time.perf_counter() - t0)
+    for path in ("pipeline", "tp"):
+        losses = r0[path]["losses"]
+        check(all(math.isfinite(x) for x in losses), f"non-finite {path} loss: {losses}")
+        check(losses[-1] < losses[0], f"{path} loss did not fall: {losses}")
+        check(abs(losses[0] - dense) <= PAR_LOSS_RTOL * abs(dense),
+              f"{path} first loss {losses[0]} vs dense flash loss {dense}")
+        for r in ranks:
+            check(r[path]["losses"] == losses, f"rank {r['rank']} saw other {path} losses")
+            for name, n in r[path]["launches"].items():
+                check(n == want[path] * steps[path],
+                      f"{path} rank {r['rank']} launched {name} {n} times, want "
+                      f"{want[path]} x {steps[path]} steps")
+    check(abs(moe_out["aux"] - moe_out["aux_plain"]) <= ATOL + RTOL * abs(moe_out["aux_plain"]),
+          f"MoE aux {moe_out['aux']} vs plain {moe_out['aux_plain']}")
+    return {path: [r[path]["launches"] for r in ranks] for path in ("pipeline", "tp")}
 
 
 def main() -> int:
@@ -962,6 +1349,7 @@ def main() -> int:
     ring_launches = ring_phase()
     resnet_phase(smi)
     optimizers_phase(smi)
+    par_launches = parallel_phase(smi)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():
@@ -970,6 +1358,9 @@ def main() -> int:
             "replaces": f"{TPU_SOURCE}:{tpu_line}", "tpu_source": f"{TPU_SOURCE}:{tpu_body}",
             "launches": train["launches"][key],
             "ring_launches": ring_launches[key],
+            # a step, per rank: the pipeline's 4 steps and TP's 3 divided out
+            "pipeline_launches_per_step": [r[key] / PP_STEPS for r in par_launches["pipeline"]],
+            "tp_launches_per_step": [r[key] / TP_STEPS for r in par_launches["tp"]],
             "max_abs_err": kern["errs"][kname], "max_err": kern["errs"][kname],
             "ms": kern["ms"][kname], "ms_cold_l2": kern["ms_cold"][kname],
             "plain_ms": kern["plain_ms"][kname],

@@ -1,5 +1,5 @@
-"""IDX file reader (the MNIST container), gzip-transparent. The port's own
-copy of `kungfu_tpu/datasets/idx.py::read_idx`. Format: magic
+"""IDX file reader and writer (the MNIST container), gzip-transparent. The
+port's own copy of `kungfu_tpu/datasets/idx.py`. Format: magic
 ``\\x00\\x00<dtype><ndim>``, big-endian uint32 dims, then row-major data.
 """
 
@@ -20,6 +20,8 @@ _IDX_DTYPES = {
     0x0D: np.dtype(">f4"),
     0x0E: np.dtype(">f8"),
 }
+
+_DTYPE_CODES = {dt.newbyteorder("="): code for code, dt in _IDX_DTYPES.items()}
 
 
 def _open(path: str, mode: str) -> BinaryIO:
@@ -48,3 +50,15 @@ def read_idx(path: str) -> np.ndarray:
             )
         arr = np.frombuffer(data, dt, count=count).reshape(dims)
         return arr.astype(arr.dtype.newbyteorder("="))
+
+
+def write_idx(path: str, arr: np.ndarray) -> None:
+    """Write an array as idx(.gz); the inverse of `read_idx`."""
+    dt = np.dtype(arr.dtype.newbyteorder("="))
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"idx cannot store dtype {arr.dtype}")
+    with _open(path, "wb") as f:
+        f.write(bytes([0, 0, _DTYPE_CODES[dt], arr.ndim]))
+        f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+        be = arr.astype(arr.dtype.newbyteorder(">"), copy=False)
+        f.write(np.ascontiguousarray(be).tobytes())

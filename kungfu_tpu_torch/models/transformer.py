@@ -8,7 +8,7 @@ the LM head is the tied embedding. Params are f32; compute runs in
 ``cfg.dtype`` (bf16 by default) with the same casts, in the same order, as
 the JAX functions, so a bf16 model here rounds where the JAX one does.
 
-The attention core is pluggable: ``_full_attention_core`` by default,
+The attention core is pluggable: ``full_attention_core`` by default,
 `ops.flash_attention.flash_attention` for the fused kernels. The
 sequence-parallel path (`make_ring_transformer_loss`) runs the same block
 per sequence shard with a ring attention core (`ops/ring_attention.py`).
@@ -25,6 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kungfu_tpu_torch import resolve_device
+from kungfu_tpu_torch.base.ops import ReduceOp
+from kungfu_tpu_torch.ops import collective
 from kungfu_tpu_torch.ops.ring_attention import ring_self_attention
 
 LAYER_KEYS = ("ln1_scale", "ln2_scale", "wqkv", "wo", "w_in", "w_out")
@@ -109,12 +111,35 @@ def init_transformer(cfg: TransformerConfig, generator: Optional[torch.Generator
     return Transformer(cfg, params).to(device)
 
 
+def param_pspecs(cfg: TransformerConfig, tp_axis: str = "tp") -> Dict:
+    """The sharding of each leaf (`kungfu_tpu/models/transformer.py::param_pspecs`):
+    per dimension, the mesh axis it is split over, or None; () for a
+    replicated leaf. Column-parallel wqkv and w_in (output features over
+    tp), row-parallel wo and w_out (input features over tp), the
+    embedding over vocab. wqkv's columns split per head only in the
+    order `models.convert.tp_layout` gives them."""
+    t = tp_axis
+    return {
+        "embed": (t, None),
+        "pos_embed": (),
+        "ln_f_scale": (),
+        "layers": {
+            "ln1_scale": (None,),
+            "ln2_scale": (None,),
+            "wqkv": (None, None, t),
+            "wo": (None, t, None),
+            "w_in": (None, None, t),
+            "w_out": (None, t, None),
+        },
+    }
+
+
 def _rmsnorm(x, scale, eps: float = 1e-6):
     var = x.float().square().mean(-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
-def _full_attention_core(q, k, v):
+def full_attention_core(q, k, v):
     """(B, H, S, hd) q/k/v -> causal attention context, same shape."""
     hd, S = q.shape[-1], q.shape[2]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.tensor(
@@ -125,25 +150,35 @@ def _full_attention_core(q, k, v):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def _attention(x, wqkv, wo, cfg: TransformerConfig, core=_full_attention_core):
+def _attention(x, wqkv, wo, cfg: TransformerConfig, core=full_attention_core):
     """QKV projection + head reshape around a pluggable (q, k, v) -> ctx
-    core. The fused QKV splits into contiguous thirds."""
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = (x @ wqkv).split(D, dim=-1)
-    q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2) for t in (q, k, v))
+    core. The fused QKV splits into contiguous thirds; their width (D, or
+    D / tp for a tensor-parallel shard in `tp_layout`'s order) sets the heads."""
+    B, S, _ = x.shape
+    width, hd = wqkv.shape[-1] // 3, cfg.head_dim
+    q, k, v = (x @ wqkv).split(width, dim=-1)
+    q, k, v = (t.reshape(B, S, width // hd, hd).transpose(1, 2) for t in (q, k, v))
     ctx = core(q, k, v)
-    return ctx.transpose(1, 2).reshape(B, S, D) @ wo
+    return ctx.transpose(1, 2).reshape(B, S, width) @ wo
 
 
-def _block(x, layer, cfg: TransformerConfig, core=_full_attention_core):
+def _same(x):
+    return x
+
+
+def _block(x, layer, cfg: TransformerConfig, core=full_attention_core,
+           enter=_same, leave=_same):
+    """One pre-norm block. `enter` and `leave` bracket the two products
+    that tensor parallelism shards (`collective.copy_to_group` before the
+    column-parallel wqkv and w_in, `reduce_from_group` after the
+    row-parallel wo and w_out); the identity for a dense block."""
     dt = cfg.dtype
-    x = x + _attention(_rmsnorm(x, layer["ln1_scale"]), layer["wqkv"].to(dt),
-                       layer["wo"].to(dt), cfg, core=core)
-    h = _rmsnorm(x, layer["ln2_scale"])
+    x = x + leave(_attention(enter(_rmsnorm(x, layer["ln1_scale"])), layer["wqkv"].to(dt),
+                             layer["wo"].to(dt), cfg, core=core))
+    h = enter(_rmsnorm(x, layer["ln2_scale"]))
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h @ layer["w_in"].to(dt), approximate="tanh")
-    return x + h @ layer["w_out"].to(dt)
+    return x + leave(h @ layer["w_out"].to(dt))
 
 
 def lm_head_loss(params, x, targets, cfg: TransformerConfig):
@@ -157,22 +192,25 @@ def lm_head_loss(params, x, targets, cfg: TransformerConfig):
 
 def transformer_hidden(params, tokens, cfg: TransformerConfig, core=None):
     """tokens (B, S) int -> final hidden states (B, S, D) pre-norm."""
-    core = core or _full_attention_core
+    core = core or full_attention_core
     S = tokens.shape[1]
     if S > cfg.max_seq:
         raise ValueError(f"sequence {S} exceeds max_seq {cfg.max_seq}")
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()] + params["pos_embed"].to(dt)[:S]
-    return _layers(x, params, cfg, core)
+    return apply_layers(x, params, cfg, core)
 
 
-def _layers(x, params, cfg: TransformerConfig, core):
+def apply_layers(x, params, cfg: TransformerConfig, core, enter=_same, leave=_same):
+    """Every layer of the stack `params["layers"]` (all of the model's, or
+    a pipeline stage's slice) in order."""
     # one unbind per stacked leaf: its backward writes each layer's gradient
     # into the stacked grad once (indexing layer by layer would accumulate
     # a full-size zero-padded gradient per layer)
     per_layer = {name: params["layers"][name].unbind(0) for name in LAYER_KEYS}
-    for i in range(cfg.n_layers):
-        x = _block(x, {name: per_layer[name][i] for name in LAYER_KEYS}, cfg, core=core)
+    for i in range(len(per_layer["wqkv"])):
+        x = _block(x, {name: per_layer[name][i] for name in LAYER_KEYS}, cfg, core=core,
+                   enter=enter, leave=leave)
     return x
 
 
@@ -222,7 +260,7 @@ def ring_transformer_apply_shard(params, tokens, cfg: TransformerConfig, session
     def ring_core(q, k, v):
         return core(q, k, v, group, causal=True)
 
-    return _layers(x, params, cfg, ring_core)
+    return apply_layers(x, params, cfg, ring_core)
 
 
 def make_ring_transformer_loss(cfg: TransformerConfig, session, sp_axis: str = "sp",
@@ -250,3 +288,75 @@ def make_ring_transformer_loss(cfg: TransformerConfig, session, sp_axis: str = "
         return lm_head_loss(params, x, targets, cfg)
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel path (Megatron-style). The port has no SPMD partitioner, so
+# the collectives JAX's partitioner derives from `param_pspecs` are written
+# out: the identity forward with a summed backward before each column-
+# parallel product, and a sum forward after each row-parallel one. Each
+# rank of the tp group holds H / tp heads, d_ff / tp hidden units and V / tp
+# rows of the embedding, and every rank of the group computes the same loss.
+# ---------------------------------------------------------------------------
+
+
+def _tp_embed(embed, tokens, group, dt):
+    """Vocab-parallel lookup: rows outside this rank's range give zero,
+    and the sum over the group holds every token's row."""
+    vl = embed.shape[0]
+    local = tokens.long() - collective.world_rank(group) * vl
+    mine = (local >= 0) & (local < vl)
+    rows = embed.to(dt)[local.clamp(0, vl - 1)]
+    return collective.reduce_from_group(torch.where(mine[..., None], rows, 0), group)
+
+
+def tp_lm_head_loss(params, x, targets, cfg: TransformerConfig, group):
+    """`lm_head_loss` with the tied head vocab-parallel in f32: each rank
+    forms the logits of its V / tp rows, and the log-softmax takes the
+    all-reduced max, sum of exponentials and target logit, so no rank
+    holds the whole embedding or the whole logits."""
+    emb = params["embed"]
+    vl = emb.shape[0]
+    h = collective.copy_to_group(_rmsnorm(x, params["ln_f_scale"]), group)
+    logits = h.float() @ emb.float().T
+    m = collective.all_reduce(logits.detach().amax(-1), ReduceOp.MAX, group)
+    sumexp = collective.reduce_from_group(torch.exp(logits - m[..., None]).sum(-1), group)
+    local = targets.long() - collective.world_rank(group) * vl
+    mine = (local >= 0) & (local < vl)
+    tgt = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    tgt = collective.reduce_from_group(torch.where(mine, tgt, 0), group)
+    return (torch.log(sumexp) + m - tgt).mean()
+
+
+def tp_transformer_loss(params, batch, cfg: TransformerConfig, session, tp_axis: str = "tp",
+                        sp_axis: Optional[str] = None, core=None):
+    """Causal-LM loss of a tensor-parallel shard of the parameters
+    (`models.convert.tp_layout`, then split by `param_pspecs`) on this rank's (tokens,
+    targets). With `sp_axis`, tokens are this rank's (B, S / sp) chunk of
+    the sequence, chunk i on index i of the axis, and attention is a ring
+    over the sp group (`core`: a ring core (q, k, v, group, causal),
+    `ring_self_attention` by default); without it `core` is a dense core
+    (q, k, v), full attention by default. Returns this rank's loss, the
+    same on every rank of its tp group."""
+    tokens, targets = batch
+    group = session.axis_group(tp_axis)
+    dt = cfg.dtype
+    S = tokens.shape[1]
+    start = 0
+    if sp_axis is not None:
+        ring = core or ring_self_attention
+        sp_group = session.axis_group(sp_axis)
+        start = session.axis_index(sp_axis) * S
+        if session.axis_size(sp_axis) * S > cfg.max_seq:
+            raise ValueError(f"global sequence {session.axis_size(sp_axis) * S} exceeds "
+                             f"max_seq {cfg.max_seq}")
+
+        def core(q, k, v):
+            return ring(q, k, v, sp_group, causal=True)
+    elif S > cfg.max_seq:
+        raise ValueError(f"sequence {S} exceeds max_seq {cfg.max_seq}")
+    x = _tp_embed(params["embed"], tokens, group, dt) + params["pos_embed"][start:start + S].to(dt)
+    x = apply_layers(x, params, cfg, core or full_attention_core,
+                enter=lambda t: collective.copy_to_group(t, group),
+                leave=lambda t: collective.reduce_from_group(t, group))
+    return tp_lm_head_loss(params, x, targets, cfg, group)

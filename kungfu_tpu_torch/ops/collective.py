@@ -12,14 +12,20 @@ per buffer.
 sends and receives. gloo's send and receive take host memory only, so on a
 gloo group a CUDA tensor travels through pinned host buffers; this is the
 only place the port stages through the host, and it is chosen by the
-group's backend. gloo's all-reduce, broadcast, reduce-scatter and tiled
-all-gather take CUDA tensors themselves (the last two checked on an H100
-with torch 2.11).
+group's backend. gloo's all-reduce, broadcast, reduce-scatter, tiled
+all-gather and all-to-all take CUDA tensors themselves (the last three
+checked on an H100 with torch 2.11).
+
+The differentiable collectives follow the port's rule that each rank
+backpropagates its own loss: `ring_shift`, `all_to_all` and `pmean` take
+JAX's transposes under `shard_map`; `copy_to_group` and
+`reduce_from_group` are Megatron's pair for a group whose ranks compute
+one replicated loss.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -37,6 +43,11 @@ def world_size(group=None) -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(group)
     return 1
+
+
+def world_rank(group=None) -> int:
+    """This process's rank in `group` (0 in a world of one)."""
+    return dist.get_rank(group) if world_size(group) > 1 else 0
 
 
 def _dist_op(op: ReduceOp):
@@ -60,6 +71,15 @@ def all_average(x: torch.Tensor, group=None) -> torch.Tensor:
     return all_reduce(x, ReduceOp.SUM, group) / world_size(group)
 
 
+def subset_all_reduce(x: torch.Tensor, mask, group=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of the group whose entry in `mask`
+    (indexed by rank in the group) is nonzero, on every rank: a rank
+    outside the subset contributes zero and still receives the sum
+    (`kungfu_tpu/ops/collective.py::subset_all_reduce`)."""
+    m = torch.as_tensor(mask)[world_rank(group)].to(x.dtype)
+    return all_reduce(x * m, ReduceOp.SUM, group)
+
+
 def fuse(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Concatenate flattened tensors into one buffer."""
     return torch.cat([x.reshape(-1) for x in xs])
@@ -75,6 +95,37 @@ def defuse(fused: torch.Tensor, shapes: Sequence[Tuple[int, ...]]) -> List[torch
         out.append(fused[off:off + size].view(shape))
         off += size
     return out
+
+
+def _leaves(tree: Mapping, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
+    """(path, leaf) of a nested dict of tensors, keys sorted at every level:
+    the order `jax.tree.flatten` gives a dict pytree."""
+    out = []
+    for key in sorted(tree):
+        v = tree[key]
+        out += _leaves(v, prefix + (key,)) if isinstance(v, Mapping) else [(prefix + (key,), v)]
+    return out
+
+
+def fuse_pytree(tree: Mapping) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Dict]]:
+    """Pack a nested dict of tensors into (flat vector, unflatten): the
+    leaves in sorted-key order, concatenated in their promoted dtype;
+    `unflatten(vec)` rebuilds the nested dict, each leaf in its own shape
+    and dtype (`kungfu_tpu/ops/collective.py::fuse_pytree`)."""
+    paths, leaves = zip(*_leaves(tree)) if tree else ((), ())
+    shapes = [x.shape for x in leaves]
+    dtypes = [x.dtype for x in leaves]
+
+    def unflatten(vec: torch.Tensor) -> Dict:
+        out: Dict = {}
+        for path, part, dt in zip(paths, defuse(vec, shapes), dtypes):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = part.to(dt)
+        return out
+
+    return fuse(leaves), unflatten
 
 
 def _buckets(xs: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
@@ -115,6 +166,94 @@ def all_gather(x: torch.Tensor, axis: int = 0, tiled: bool = False,
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class AllToAll(torch.autograd.Function):
+    """`lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=False)`: slice
+    i of this rank's (n, ...) `x` goes to rank i of the group, and slice j
+    of the result is what rank j sent this rank. The exchange is its own
+    transpose, so the backward is the same exchange of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable all-to-all over dimension 0 of `x`, whose length is
+    the group's size. gloo exchanges CUDA tensors itself, so no route
+    stages through the host."""
+    n = world_size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all splits dimension 0 of {tuple(x.shape)} over {n} ranks")
+    if n == 1:
+        return x.clone()
+    return AllToAll.apply(x, group)
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_average(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_average(g, ctx.group), None
+
+
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable all-average (`lax.pmean`): each rank backpropagates
+    its own loss, and the objective is the sum of them, so the backward is
+    the all-average of the cotangents, as JAX transposes `pmean`."""
+    return x.clone() if world_size(group) == 1 else _Mean.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ReduceOp.SUM, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's entry to a tensor-parallel region: the identity forward,
+    the sum over the group of the cotangents backward (every rank's shard
+    of the next product contributes to the gradient of a replicated x)."""
+    return x if world_size(group) == 1 else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's exit from a tensor-parallel region: the sum of the
+    ranks' partial results forward, the identity backward (every rank of
+    the group computes the same replicated loss from here on, counted
+    once)."""
+    return x if world_size(group) == 1 else _ReduceFromGroup.apply(x, group)
 
 
 def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:

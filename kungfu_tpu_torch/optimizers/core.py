@@ -34,12 +34,15 @@ def state_bytes(opt: torch.optim.Optimizer) -> int:
 
 
 class SynchronousSGD:
-    """S-SGD around a torch optimizer: average gradients over the session's
-    world, then take the base optimizer's step."""
+    """S-SGD around a torch optimizer: average gradients over `group` (the
+    session's world by default; a mesh's data axes, from
+    `session.axes_group`, for a sharded model), then take the base
+    optimizer's step."""
 
-    def __init__(self, base: torch.optim.Optimizer, session):
+    def __init__(self, base: torch.optim.Optimizer, session, group=None):
         self.base = base
         self.session = session
+        self.group = session.group if group is None else group
 
     @property
     def param_groups(self):
@@ -48,12 +51,24 @@ class SynchronousSGD:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.base.zero_grad(set_to_none=set_to_none)
 
+    def filled_grads(self) -> List[torch.Tensor]:
+        """Every parameter's gradient, a zero one where this rank left it
+        None, as JAX differentiates every leaf: ranks that differ in which
+        parameters they touched (a pipeline stage, an expert without
+        tokens) must still all-reduce buffers of one layout."""
+        params = _params(self.base)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in params]
+
     @torch.no_grad()
     def average_gradients(self) -> None:
-        if self.session.size == 1:
+        """Replace every parameter's gradient by its average over the group."""
+        grads = self.filled_grads()
+        if collective.world_size(self.group) == 1:
             return
-        grads = [p.grad for p in _params(self.base) if p.grad is not None]
-        for g, avg in zip(grads, collective.group_all_average(grads, self.session.group)):
+        for g, avg in zip(grads, collective.group_all_average(grads, self.group)):
             g.copy_(avg)
 
     def step(self, closure=None):
@@ -61,8 +76,8 @@ class SynchronousSGD:
         return self.base.step(closure)
 
 
-def synchronous_sgd(base: torch.optim.Optimizer, session) -> SynchronousSGD:
-    return SynchronousSGD(base, session)
+def synchronous_sgd(base: torch.optim.Optimizer, session, group=None) -> SynchronousSGD:
+    return SynchronousSGD(base, session, group)
 
 
 class SynchronousAveraging(SynchronousSGD):

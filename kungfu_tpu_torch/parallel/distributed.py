@@ -5,7 +5,8 @@ its place from the environment the runner sets (`KF_SELF_SPEC`,
 `KF_INIT_PEERS`, `KF_DEVICE_SLOTS`; the parsing is a private copy of
 `kungfu_tpu/runner/env.py`'s). Rank is this worker's index in the peer
 list and size the list's length. Every worker meets at rank 0's host on a
-port derived from rank 0's peer spec. NCCL on the card, gloo on the CPU,
+port derived from rank 0's peer spec (20000-29999), which rank 0 checks
+is free before it opens the store there. NCCL on the card, gloo on the CPU,
 unless the caller names the backend: gloo is the only way two ranks may
 share one card, as they must where a host has fewer cards than ranks.
 Before NCCL is set up, the ranks trade their card indices through the
@@ -19,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import socket
+import time
 import zlib
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -30,8 +33,11 @@ from kungfu_tpu_torch import resolve_device
 SELF_SPEC = "KF_SELF_SPEC"
 INIT_PEERS = "KF_INIT_PEERS"
 DEVICE_SLOTS = "KF_DEVICE_SLOTS"
+# 20000-29999: below Linux's default ephemeral range (32768-60999), where
+# the kernel hands out ports to outgoing connections, and below kfrun's
+# default peer ports (38000-38999)
 RENDEZVOUS_PORT_BASE = 20000
-RENDEZVOUS_PORT_SPAN = 20000
+RENDEZVOUS_PORT_SPAN = 10000
 RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
 
 
@@ -86,6 +92,23 @@ def rendezvous_address(spec: WorkerSpec) -> Tuple[str, int]:
     return host, RENDEZVOUS_PORT_BASE + zlib.crc32(spec.peers[0].encode()) % RENDEZVOUS_PORT_SPAN
 
 
+def check_port_free(host: str, port: int) -> None:
+    """Raise RuntimeError naming `port` if it cannot be bound on `host`
+    (another process holds it); rank 0 calls this before it opens the
+    rendezvous store there."""
+    with socket.socket() as s:
+        # as the store binds: a port left in TIME_WAIT by an earlier world is
+        # free, one that another socket listens on is not
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind((host, port))
+        except OSError as e:
+            raise RuntimeError(
+                f"the device plane's rendezvous port {port} on {host} is taken "
+                f"({e.strerror}); it is derived from rank 0's peer spec: give rank 0 "
+                "another port") from None
+
+
 def _pick_device(device, spec: WorkerSpec) -> torch.device:
     device = resolve_device(device)
     if device.type != "cuda":
@@ -127,6 +150,8 @@ def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = 
         return device
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     host, port = rendezvous_address(spec)
+    if spec.rank == 0:
+        check_port_free(host, port)
     store = dist.TCPStore(host, port, spec.size, spec.rank == 0, RENDEZVOUS_TIMEOUT)
     if backend == "nccl":
         store.set(f"kf_card/{spec.rank}", str(device.index))
@@ -140,3 +165,32 @@ def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = 
 def shutdown_device_plane() -> None:
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def spawn_world(worker, n: int, deadline_s: float, args=()) -> None:
+    """Run `worker(rank, peers, *args)` in n spawned processes, `peers`
+    the n "127.0.0.1:<free port>" specs a worker hands to
+    `initialize_device_plane` as KF_SELF_SPEC and KF_INIT_PEERS. Raises
+    if a process fails (its exception) or the world does not finish in
+    `deadline_s` (RuntimeError); kills whatever is left either way."""
+    import torch.multiprocessing as mp
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        peers = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+    ctx = mp.start_processes(worker, args=(peers, *args), nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the world of {n} processes did not finish in {deadline_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()

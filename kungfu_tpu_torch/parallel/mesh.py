@@ -41,12 +41,13 @@ def _mesh_sizes(shape: Mapping[str, int], n: int) -> Dict[str, int]:
     return dict(zip(names, sizes))
 
 
-def _axis_lines(sizes: Mapping[str, int], axis: str) -> List[List[int]]:
-    """The mesh's lines along `axis`: for each setting of the other axes,
-    the ranks that differ only in `axis`, in axis order."""
+def _axis_lines(sizes: Mapping[str, int], axes: Sequence[str]) -> List[List[int]]:
+    """The mesh's sub-meshes over `axes`: for each setting of the other
+    axes, the ranks that differ only in `axes`, row-major over `axes`."""
     grid = np.arange(math.prod(sizes.values())).reshape(tuple(sizes.values()))
-    lines = np.moveaxis(grid, list(sizes).index(axis), -1).reshape(-1, sizes[axis])
-    return lines.tolist()
+    dims = [list(sizes).index(a) for a in axes]
+    moved = np.moveaxis(grid, dims, range(grid.ndim - len(dims), grid.ndim))
+    return moved.reshape(-1, math.prod(sizes[a] for a in axes)).tolist()
 
 
 class DeviceSession:
@@ -66,12 +67,19 @@ class DeviceSession:
             return
         self._groups = {}
         for name in self.shape:
-            # new_group is collective: every rank creates every line's
-            # group, in the same order, and keeps its own
-            for line in _axis_lines(self.shape, name):
-                g = dist.new_group(line)
-                if self.rank in line:
-                    self._groups[name] = g
+            self._groups[name] = self._new_group((name,))
+
+    def _new_group(self, axes: Sequence[str]):
+        # new_group is collective over the default world: every rank
+        # creates every sub-mesh's group, in the same order, and keeps its own
+        if self.group is not None:
+            raise ValueError("only a session over the default world makes groups")
+        mine = None
+        for line in _axis_lines(self.shape, axes):
+            g = dist.new_group(line)
+            if self.rank in line:
+                mine = g
+        return mine
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -88,6 +96,22 @@ class DeviceSession:
         """The process group of this rank's line along axis `name` (None
         for the default world)."""
         return self._groups[name]
+
+    def axes_group(self, names: Sequence[str]):
+        """The process group of the ranks that share this rank's
+        coordinates on every axis not in `names` (axes of one rank left
+        out: `axis_group` for one name, the session's group for every
+        axis, a group of this rank alone for none). A new set of axes makes
+        its group here, a collective call: every rank asks for it, in the
+        same order."""
+        names = tuple(a for a in self.axis_names if a in names and self.shape[a] > 1)
+        if len(names) == 1:
+            return self.axis_group(names[0])
+        if math.prod(self.shape[a] for a in names) == self.size:
+            return self.group
+        if names not in self._groups:
+            self._groups[names] = self._new_group(names)
+        return self._groups[names]
 
     @property
     def size(self) -> int:

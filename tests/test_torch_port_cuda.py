@@ -409,3 +409,186 @@ def test_cuda_zero_over_nccl_matches_ssgd():
         pytest.skip("ZeRO over NCCL needs 2+ cards")
     n = 4 if torch.cuda.device_count() >= 4 else 2
     _spawn(_zero_nccl_worker, n, f"the {n} NCCL ZeRO ranks")
+
+
+def _gloo_all_to_all_worker(rank, peers):
+    """all_to_all on CUDA tensors of two gloo ranks that share card 0:
+    slice j of the result is slice `rank` of rank j's input, in f32 and
+    bf16, and the backward sends the cotangent back the same way."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+
+    device = initialize_device_plane(backend="gloo")
+    n = len(peers)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            def sent(r):  # what rank r sends: slice i goes to rank i
+                return (torch.arange(n * 3 * 5, device=device, dtype=torch.float32)
+                        .view(n, 3, 5) + 100 * r).to(dtype)
+
+            x = sent(rank).requires_grad_()
+            y = collective.all_to_all(x)
+            assert y.device == device and y.dtype == dtype
+            torch.testing.assert_close(y.detach(), torch.stack([sent(j)[rank] for j in range(n)]))
+            (g,) = torch.autograd.grad(y, x, sent(rank) * 2)
+            torch.testing.assert_close(g, torch.stack([sent(j)[rank] * 2 for j in range(n)]))
+        torch.cuda.synchronize()
+    finally:
+        shutdown_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_all_to_all_on_one_card():
+    """gloo's all_to_all takes CUDA tensors itself, so MoE's exchange needs
+    no host staging on card-sharing gloo ranks."""
+    _need_card()
+    _spawn(_gloo_all_to_all_worker, 2, "the two gloo ranks")
+
+
+def _moe_inputs(n, T, D, F, epd, dtype, device, seed=0):
+    E = n * epd
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xs = torch.randn(n, T, D, device=device, generator=gen).to(dtype)
+    rw = torch.randn(D, E, device=device, generator=gen) / D ** 0.5
+    w_in = torch.randn(E, D, F, device=device, generator=gen) / D ** 0.5
+    w_out = torch.randn(E, F, D, device=device, generator=gen) / F ** 0.5
+    cot = torch.randn(n, T, D, device=device, generator=gen)
+    return xs, rw, w_in, w_out, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_cuda_moe_matches_plain(top_k, dtype):
+    """`moe_ffn` (buckets, batched expert einsum, scatter back) on one card
+    as a world of one with 8 experts and drops, forward and backward,
+    against the plain MoE (each kept token through its expert directly):
+    2e-2 in bf16, 1e-4 in f32 (TF32 off)."""
+    _need_card()
+    from kungfu_tpu_torch.ops import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products keep f32 sums (no bf16 split-K partial sums, which the
+    # two versions would round at different places)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    xs, rw, w_in, w_out, cot = _moe_inputs(1, 512, 128, 256, 8, dtype, "cuda")
+    # capacity factor 1.0: C = 64, the mean load, so some expert overflows
+    assert moe.dropped_tokens(xs[0], rw, 8, top_k, 1.0) > 0
+    outs = []
+    for fn in ("port", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (xs, rw, w_in, w_out)]
+        if fn == "port":
+            y, aux = moe.moe_ffn(leaves[0][0], *leaves[1:], None, top_k=top_k,
+                                 capacity_factor=1.0)
+            y = y[None]
+        else:
+            y, aux = moe.moe_ffn_plain(*leaves, top_k=top_k, capacity_factor=1.0)
+        loss = (y.float() * cot).sum() + 0.01 * aux
+        outs.append([y, aux, *torch.autograd.grad(loss, leaves)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _moe_nccl_worker(rank, peers):
+    """moe_ffn over n NCCL ranks, one card each, against the plain MoE of
+    every shard on each rank: top-2, 2 experts a rank, bf16."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS=str(rank))
+    from kungfu_tpu_torch.ops import collective, moe
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+
+    device = initialize_device_plane()
+    n = len(peers)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        xs, rw, w_in, w_out, cot = _moe_inputs(n, 256, 128, 256, 2, torch.bfloat16, device)
+        mine = slice(rank * 2, (rank + 1) * 2)
+        leaves = [xs[rank].clone().requires_grad_(), rw.clone().requires_grad_(),
+                  w_in[mine].clone().requires_grad_(), w_out[mine].clone().requires_grad_()]
+        y, aux = moe.moe_ffn(*leaves, None, top_k=2, capacity_factor=1.25)
+        loss = (y.float() * cot[rank]).sum() + 0.01 * aux / n
+        dx, drw, dwi, dwo = torch.autograd.grad(loss, leaves)
+        full = [t.clone().requires_grad_() for t in (xs, rw, w_in, w_out)]
+        y_p, aux_p = moe.moe_ffn_plain(*full, top_k=2, capacity_factor=1.25)
+        ref = torch.autograd.grad((y_p.float() * cot).sum() + 0.01 * aux_p, full)
+        pairs = [(y, y_p[rank]), (aux, aux_p), (dx, ref[0][rank]),
+                 (collective.all_reduce(drw), ref[1]), (dwi, ref[2][mine]), (dwo, ref[3][mine])]
+        for got, want in pairs:
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        torch.cuda.synchronize()
+    finally:
+        shutdown_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_over_nccl_matches_plain():
+    """Needs two or more cards (NCCL refuses two ranks on one)."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("MoE over NCCL needs 2+ cards")
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    _spawn(_moe_nccl_worker, n, f"the {n} NCCL MoE ranks")
+
+
+def _tp_nccl_worker(rank, peers):
+    """BERT-like layers at head dim 64 under tensor parallelism over n NCCL
+    ranks (one head a rank), flash core: the loss and the gradients,
+    gathered to the dense layout, against the dense flash path on one
+    card."""
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS=str(rank))
+    from kungfu_tpu_torch.models import convert, transformer as tr
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane, shutdown_device_plane
+    from kungfu_tpu_torch.parallel.mesh import make_mesh
+    from kungfu_tpu_torch.parallel.sharded import gather_params, shard_params
+
+    device = initialize_device_plane()
+    n = len(peers)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = tr.TransformerConfig(vocab_size=512, d_model=64 * n, n_heads=n, n_layers=2,
+                                   d_ff=128 * n, max_seq=256)
+        full = convert.to_jax(tr.init_transformer(cfg, torch.Generator().manual_seed(0), "cpu"))
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, 512, (4, 257), generator=gen).to(device)
+        batch = (tokens[:, :-1], tokens[:, 1:])
+        dense = convert.transformer_from_jax(full, cfg, device)
+        want = tr.transformer_loss(dense.tree(), batch, cfg, core=tfa.flash_attention)
+        want.backward()
+        session = make_mesh(device, shape={"tp": n})
+        specs = tr.param_pspecs(cfg)
+        whole = convert.tp_layout(convert.transformer_params_from_jax(full), n)
+        model = tr.Transformer(cfg, shard_params(whole, session, specs)).to(device)
+        got = tr.tp_transformer_loss(model.tree(), batch, cfg, session,
+                                     core=tfa.flash_attention)
+        got.backward()
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        t = model.tree()
+        grads = {**{k: t[k].grad for k in convert.TOP_KEYS},
+                 "layers": {k: t["layers"][k].grad for k in convert.LAYER_KEYS}}
+        grads = convert.to_jax(convert.tp_unlayout(gather_params(grads, session, specs), n))
+        ref = convert.grads_to_jax(dense)
+        pairs = [(grads[k], ref[k], k) for k in convert.TOP_KEYS]
+        pairs += [(grads["layers"][k], ref["layers"][k], k) for k in convert.LAYER_KEYS]
+        for g, r, k in pairs:  # bf16 compute: within 2e-2 of each leaf's scale
+            err = float(abs(g - r).max())
+            assert err <= 2e-2 * float(abs(r).max()), (k, err, float(abs(r).max()))
+        torch.cuda.synchronize()
+    finally:
+        shutdown_device_plane()
+
+
+@pytest.mark.cuda
+def test_cuda_tp_over_nccl_matches_dense():
+    """Needs two or more cards (NCCL refuses two ranks on one)."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("tensor parallelism over NCCL needs 2+ cards")
+    from kungfu_tpu_torch.ops import _build
+
+    _build.build_all(["flash_attention"])
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    _spawn(_tp_nccl_worker, n, f"the {n} NCCL tensor-parallel ranks")

@@ -40,7 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kungfu_tpu_torch.ops.ring_attention" in res["imported"]
     assert "kungfu_tpu_torch.models.resnet" in res["imported"]
     assert "kungfu_tpu_torch.bench" in res["imported"]
-    assert len(res["imported"]) >= 21
+    for mod in ("graft_entry", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
+                "parallel.pipeline", "parallel.sharded"):
+        assert f"kungfu_tpu_torch.{mod}" in res["imported"]
+    assert len(res["imported"]) >= 28
 
 
 def test_every_module_of_the_slice_exists():
@@ -51,15 +54,18 @@ def test_every_module_of_the_slice_exists():
                 "models.transformer", "models.convert", "parallel.distributed",
                 "parallel.mesh", "parallel.dp", "optimizers.core", "initializer",
                 "examples.bert_ssgd", "optimizers", "models.resnet", "models.mlp",
-                "datasets", "datasets.idx", "examples.mnist_slp", "bench"):
+                "datasets", "datasets.idx", "examples.mnist_slp", "bench", "graft_entry",
+                "monitor", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
+                "parallel.pipeline", "parallel.sharded"):
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
 
 def _entry_points():
-    from kungfu_tpu_torch import bench
+    from kungfu_tpu_torch import bench, graft_entry
     from kungfu_tpu_torch.examples import bert_ssgd, mnist_slp
+    from kungfu_tpu_torch.monitor.noise_scale import gns_init
     from kungfu_tpu_torch.models.mlp import init_mlp
     from kungfu_tpu_torch.models.resnet import init_resnet, resnet18_thin
     from kungfu_tpu_torch.models.transformer import TransformerConfig, init_transformer
@@ -77,13 +83,17 @@ def _entry_points():
         "init_mlp": lambda: init_mlp(),
         "mnist_slp.main": lambda: mnist_slp.main(["--epochs", "1"]),
         "bench.main": lambda: bench.main(["--batch", "2", "--image-size", "32"]),
+        "graft_entry.entry": lambda: graft_entry.entry(),
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
+        "gns_init": lambda: gns_init(),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_transformer",
                                   "initialize_device_plane", "make_mesh", "make_mesh_2d",
                                   "bert_ssgd.main", "init_resnet", "init_mlp",
-                                  "mnist_slp.main", "bench.main"])
+                                  "mnist_slp.main", "bench.main", "graft_entry.entry",
+                                  "dryrun_multichip", "gns_init"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -229,6 +229,61 @@ def test_gzip_file_is_really_compressed(tmp_path):
         assert f.read(4) == bytes([0, 0, 0x08, 3])
 
 
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gz"])
+@pytest.mark.parametrize("dtype", IDX_DTYPES, ids=[np.dtype(d).name for d in IDX_DTYPES])
+def test_write_idx_round_trips_and_matches_jax(tmp_path, dtype, gz):
+    rng = np.random.default_rng(1)
+    arr = (rng.standard_normal((2, 3, 4)) * 50).astype(dtype)
+    ext = ".gz" if gz else ""
+    tds.write_idx(str(tmp_path / f"port.idx{ext}"), arr)
+    write_idx(str(tmp_path / f"jax.idx{ext}"), arr)
+    for reader in (tds.read_idx, jax_read_idx):
+        got = reader(str(tmp_path / f"port.idx{ext}"))
+        assert got.dtype == arr.dtype
+        np.testing.assert_array_equal(got, arr)
+    if not gz:  # gzip stamps a time: compare the plain bytes only
+        assert (tmp_path / "port.idx").read_bytes() == (tmp_path / "jax.idx").read_bytes()
+
+
+def test_write_idx_refuses_what_idx_cannot_store(tmp_path):
+    with pytest.raises(ValueError, match="cannot store"):
+        tds.write_idx(str(tmp_path / "b.idx"), np.zeros(3, dtype=np.complex64))
+
+
+@pytest.mark.parametrize("keys", [("x", "y"), ("images", "labels")])
+def test_load_npz_matches_jax(tmp_path, keys):
+    rng = np.random.default_rng(2)
+    path = str(tmp_path / "d.npz")
+    np.savez(path, **{keys[0]: rng.standard_normal((5, 3)).astype(np.float32),
+                      keys[1]: rng.integers(0, 4, 5)})
+    got, want = tds.load_npz(path, *keys), jds.load_npz(path, *keys)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["npz", "pickle"])
+def test_load_cifar10_matches_jax(tmp_path, form):
+    import pickle
+
+    rng = np.random.default_rng(3)
+    if form == "npz":
+        np.savez(tmp_path / "cifar10.npz", train_x=rng.random((6, 32, 32, 3)),
+                 train_y=rng.integers(0, 10, 6), test_x=rng.random((2, 32, 32, 3)),
+                 test_y=rng.integers(0, 10, 2))
+    else:
+        for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+            batch = {b"data": rng.integers(0, 256, (2, 3 * 32 * 32)).astype(np.uint8),
+                     b"labels": list(rng.integers(0, 10, 2))}
+            with open(tmp_path / name, "wb") as f:
+                pickle.dump(batch, f)
+    got, want = tds.load_cifar10(str(tmp_path)), jds.load_cifar10(str(tmp_path))
+    assert got[0].shape == (6 if form == "npz" else 10, 32, 32, 3)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # the example
 # ---------------------------------------------------------------------------
