@@ -78,7 +78,23 @@ Phases, each printing one JSON line:
            process (out, dx and the router gradient per element within 2e-2,
            the expert gradients within 2e-2 of their scale), dropped tokens
            printed; per path the step ms and its split between collectives
-           and the rest.
+           and the rest;
+  hostplane  the host plane's framework-free core on real data: 4 sets of
+           ResNet-50 gradients (16 images each, four seeded batches, 25,557,032
+           f32 values a set) copied into pinned buffers from the port's
+           BufferPool, then the host all-reduce of 4 simulated peers replayed
+           in one process through the port's host C++: the segmented ring in
+           f32, with the bf16 wire and with the int8 wire (block 16), and the
+           default strategy's (BINARY_TREE_STAR) graph pair in f32; gates:
+           each walk bitwise equal to its replay through the plain twins,
+           every peer holding the same bits, the f32 ring and tree within
+           2 (k - 1) 2^-24 sum|g| + 2^-126 of the card's sum elementwise and of
+           each other, bf16 within 2 max|sum| 2^-8 and int8 within
+           2 max|sum| 2/127 of the card's sum; prints each walk's ms (and its
+           plain replay's), transform2 / transform_n (k 4) / codec GB/s on the
+           102 MB buffers, pinned device-to-host and host-to-device GB/s, the
+           host CPU, and the MST and ring plan (with its digest, derived
+           twice) of a seeded 8 x 8 bandwidth matrix.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -130,6 +146,19 @@ PAR_LOSS_RTOL = 1e-4
 MOE_D, MOE_F, MOE_T, MOE_EPD, MOE_CF, MOE_AUX_W = 768, 3072, 4096, 4, 1.25, 0.01
 MOE_SHARED = 0.5  # the tokens' common component
 MOE_GRAD_TOL = 2e-2  # of the tensor's largest |value|: the expert weight gradients
+# the host plane's replay: k simulated peers' ResNet-50 gradients (the
+# optimizers phase's 16 images each), the int8 wire at the engine's block
+HOST_PEERS = 4
+HOST_QWIRE = (8, 16)
+HOST_TURNS = 5  # timed calls of each host function, the median kept
+# the ring's and the tree's f32 sums against the card's, elementwise: two
+# summation orders of k terms differ by at most 2 (k - 1) u sum|g|, u = 2^-24,
+# plus the smallest normal for gradual underflow
+HOST_F32_ULP = 2.0 ** -24
+HOST_F32_FLOOR = 2.0 ** -126
+# the wire codecs' limits of tests/test_wire_codec.py:46,211 and
+# tests/test_wire_q.py:53,233: 2 max|sum| eps, eps 2^-8 (bf16), 2/127 (int8)
+HOST_WIRE_EPS = {"bf16": 2.0 ** -8, "int8": 2.0 / 127.0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 KERNEL_SOURCE = "kungfu_tpu_torch/csrc/flash_attention.cu"
@@ -1318,6 +1347,323 @@ def parallel_phase(smi: str) -> dict:
     return {path: [r[path]["launches"] for r in ranks] for path in ("pipeline", "tp")}
 
 
+def host_ops(plain: bool = False):
+    """The host functions a replayed walk calls: the port's (its host C++)
+    or, with `plain`, their plain PyTorch twins; buffers are torch tensors."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from kungfu_tpu_torch.base import ops
+
+    twin = (lambda name: getattr(ops, f"{name}_plain")) if plain else (
+        lambda name: getattr(ops, name))
+    return SimpleNamespace(
+        reduce_segment=twin("reduce_segment"), copy_segment=ops.copy_segment,
+        transform_n=twin("transform_n"), encode=twin("encode_wire_any"),
+        decode=twin("decode_wire_any"), decode_accumulate=twin("decode_accumulate_any"),
+        empty=lambda count, dtype: torch.empty(count, dtype=getattr(torch, dtype)))
+
+
+def _wire_layout(bounds, wire):
+    """(dtype, offsets) of a walk's wire buffer: the encoded segments one
+    after the other, 2-byte elements for the 16-bit wires, bytes (scales
+    and packed payload, blocks relative to each segment) for a QWire, the
+    port's or the JAX package's."""
+    from kungfu_tpu_torch.base.ops import wire_nbytes_q
+
+    q = hasattr(wire, "bits")
+    offs = [0]
+    for b, e in bounds:
+        offs.append(offs[-1] + (wire_nbytes_q(e - b, wire.bits, wire.block) if q else e - b))
+    return ("uint8" if q else "uint16"), offs
+
+
+def ring_replay(bufs, ops, wire=None) -> list:
+    """The segmented ring all-reduce (SUM) of `bufs`, k one-dimensional f32
+    buffers, one a simulated peer's, replayed in one process as the host
+    engine's walk moves segments between peers: k - 1 reduce-scatter steps
+    (reduce_segment, or with a wire: the sender encodes its partial, the
+    receiver decode-accumulates it), then k - 1 all-gather steps
+    (copy_segment; with a wire, each owner encodes its reduced segment once,
+    the encodings are relayed as they are, and every peer, owner included,
+    decodes every segment at the end). Each buffer ends holding the sum;
+    returns `bufs`. `ops` is `host_ops()`'s namespace, or the tests' for the
+    JAX package."""
+    from kungfu_tpu_torch.base.ops import ReduceOp
+    from kungfu_tpu_torch.plan.topology import gen_segmented_schedule, segment_bounds
+
+    k, n = len(bufs), len(bufs[0])
+    bounds = segment_bounds(n, k)
+    scheds = [gen_segmented_schedule(list(range(k)), i) for i in range(k)]
+    if wire is not None:
+        dtype, offs = _wire_layout(bounds, wire)
+        wbufs = [ops.empty(offs[-1], dtype) for _ in range(k)]
+    for s in range(k - 1):
+        for i in range(k):
+            (seg, _), dst = scheds[i].rs_steps[s], (i + 1) % k
+            b, e = bounds[seg]
+            if e == b:
+                continue
+            if wire is None:
+                ops.reduce_segment(bufs[dst], b, e, bufs[i][b:e], ReduceOp.SUM)
+            else:
+                msg = wbufs[i][offs[seg]:offs[seg + 1]]
+                ops.encode(msg, bufs[i][b:e], wire)
+                ops.decode_accumulate(bufs[dst], b, e, msg, wire, ReduceOp.SUM)
+    if wire is not None:
+        for i in range(k):
+            seg = scheds[i].owned_segment
+            b, e = bounds[seg]
+            if e > b:
+                ops.encode(wbufs[i][offs[seg]:offs[seg + 1]], bufs[i][b:e], wire)
+    src = bufs if wire is None else wbufs
+    lim = bounds if wire is None else list(zip(offs, offs[1:]))
+    for s in range(k - 1):
+        for i in range(k):
+            seg = scheds[i].ag_steps[s][0]
+            b, e = lim[seg]
+            if e > b:
+                ops.copy_segment(src[(i + 1) % k], b, e, src[i][b:e])
+    if wire is not None:
+        for i in range(k):
+            for seg, (b, e) in enumerate(bounds):
+                if e > b:
+                    ops.decode(bufs[i][b:e], wbufs[i][offs[seg]:offs[seg + 1]], wire)
+    return bufs
+
+
+def graph_replay(sends, pair, ops) -> list:
+    """The graph walk of one strategy pair (SUM, f32 or any dtype), replayed
+    in one process as the host engine runs it, reduce graph then broadcast
+    graph, nodes in topological order: a node of the reduce graph with
+    predecessors reduces its own send and what they pass on, in their order,
+    in one n-ary pass (transform_n); a node of the broadcast graph copies
+    its predecessor's value, a root keeps its own. Returns each peer's
+    result."""
+    from kungfu_tpu_torch.base.ops import ReduceOp
+
+    k, n = len(sends), len(sends[0])
+    dtype = str(sends[0].dtype).split(".")[-1]
+    recvs = [None] * k
+
+    def value(i):
+        return sends[i] if recvs[i] is None else recvs[i]
+
+    for g in (pair.reduce_graph, pair.bcast_graph):
+        indeg = [len(g.prevs(i)) for i in range(k)]
+        ready = [i for i in range(k) if indeg[i] == 0]
+        while ready:
+            i = ready.pop(0)
+            prevs = g.prevs(i)
+            if prevs:
+                out = ops.empty(n, dtype)
+                if g.is_self_loop(i):
+                    ops.transform_n(out, [value(i)] + [value(p) for p in prevs], ReduceOp.SUM)
+                else:
+                    ops.copy_segment(out, 0, n, value(prevs[0]))
+                recvs[i] = out
+            for j in g.nexts(i):
+                indeg[j] -= 1
+                if indeg[j] == 0:
+                    ready.append(j)
+    return [value(i) for i in range(k)]
+
+
+def _median_s(fn, turns: int = HOST_TURNS) -> float:
+    times = []
+    for _ in range(turns):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def _host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, with the
+    vendor, family and model beside it where the name reads "unknown"."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name += (f" ({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+                 f"model {info.get('model', '?')})")
+    return name
+
+
+def hostplane_phase(smi: str) -> dict:
+    """The host plane's core on 4 real ResNet-50 gradient sets: pinned
+    staging through the port's BufferPool, the ring (f32, bf16, int8) and
+    the default strategy's graph pair replayed through the host C++, each
+    held bitwise against its plain replay and against the card's sum; the
+    host functions' throughput; the MST and a ring plan of an 8 x 8 matrix."""
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch.base import _native
+    from kungfu_tpu_torch.base import ops as hops
+    from kungfu_tpu_torch.base.dtype import DType
+    from kungfu_tpu_torch.base.strategy import DEFAULT_STRATEGY
+    from kungfu_tpu_torch.collective.strategies import gen_global_strategies
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.ops import _build
+    from kungfu_tpu_torch.plan.mst import minimum_spanning_tree
+    from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+    from kungfu_tpu_torch.plan.replan import derive_plan
+    from kungfu_tpu_torch.utils.pool import BufferPool
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib_path = _build.compile_host_library()
+    _native.lib()
+    build_s = time.perf_counter() - t0
+    device = torch.device("cuda", 0)
+    k = HOST_PEERS
+    torch.cuda.empty_cache()
+    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    params = list(model.parameters())
+    gen = torch.Generator(device=device).manual_seed(300)
+    grads = []
+    for _ in range(k):
+        images = torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device,
+                             dtype=torch.bfloat16, generator=gen)
+        labels = torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen)
+        model.zero_grad(set_to_none=True)
+        resnet_loss(model, (images, labels)).backward()
+        grads.append(torch.cat([p.grad.reshape(-1).float() for p in params]))
+    del model, params
+    n = grads[0].numel()
+    nbytes = 4 * n
+    check(all(bool(g.isfinite().all()) for g in grads), "non-finite ResNet-50 gradients")
+
+    pool = BufferPool(pin_memory=True)
+    hosts = [pool.get(nbytes).view(torch.float32) for _ in range(k)]
+    work = [pool.get(nbytes).view(torch.float32) for _ in range(k)]
+    check(all(h.is_pinned() for h in hosts + work), "the BufferPool's buffers are not pinned")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g, h in zip(grads, hosts):
+        h.copy_(g, non_blocking=True)
+    torch.cuda.synchronize()  # the C++ reads these buffers next
+    d2h_s = time.perf_counter() - t0
+    card_sum = torch.stack(grads).sum(0)
+    abs_sum = torch.stack(grads).abs().sum(0, dtype=torch.float64)
+    sum_max = card_sum.abs().max().item()
+    f32_bound = 2 * (k - 1) * HOST_F32_ULP * abs_sum + HOST_F32_FLOOR
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    port, plain = host_ops(), host_ops(plain=True)
+    walks = {}
+    _native.reset_calls()
+
+    def run(name, replay):
+        """One walk through the host C++ on the pinned `work` buffers, and
+        its plain replay on copies; returns peer 0's result on the card."""
+        for w, h in zip(work, hosts):
+            w.copy_(h)
+        t0 = time.perf_counter()
+        out = replay(work, port)
+        ms = (time.perf_counter() - t0) * 1e3
+        twin = [h.clone() for h in hosts]
+        t0 = time.perf_counter()
+        out_plain = replay(twin, plain)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(all(same_bits(a, b) for a, b in zip(out, out_plain)),
+              f"host walk {name} differs from its plain replay")
+        check(all(same_bits(out[0], o) for o in out[1:]),
+              f"host walk {name} left the peers with different results")
+        walks[name] = {"ms": ms, "plain_ms": plain_ms}
+        return out[0].to(device, copy=True)
+
+    peers = PeerList(PeerID("127.0.0.1", 38000 + r) for r in range(k))
+    (pair,) = gen_global_strategies(peers, DEFAULT_STRATEGY)
+    results = {
+        "ring_f32": run("ring_f32", lambda bufs, ops: ring_replay(bufs, ops)),
+        "ring_bf16": run("ring_bf16", lambda bufs, ops: ring_replay(bufs, ops, DType.BF16)),
+        "ring_int8": run("ring_int8",
+                         lambda bufs, ops: ring_replay(bufs, ops, hops.QWire(*HOST_QWIRE))),
+        "tree_f32": run("tree_f32", lambda bufs, ops: graph_replay(bufs, pair, ops)),
+    }
+    t0 = time.perf_counter()
+    for w, g in zip(work, grads):
+        g.copy_(w, non_blocking=True)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    calls = dict(_native.CALLS)
+    errs = {}
+    for name, got in results.items():
+        err = (got.double() - card_sum.double()).abs()
+        if name in ("ring_f32", "tree_f32"):
+            ratio = (err / f32_bound).max().item()
+        else:
+            ratio = err.max().item() / (2 * sum_max * HOST_WIRE_EPS[name.split("_")[1]])
+        errs[name] = {"max_abs_err_vs_card": err.max().item(), "worst_tol_ratio": ratio}
+        check(bool(got.isfinite().all()) and ratio <= 1.0,
+              f"host walk {name} vs the card's sum: {errs[name]}")
+    tree_ring = (results["tree_f32"].double() - results["ring_f32"].double()).abs()
+    errs["tree_vs_ring"] = {"max_abs_err": tree_ring.max().item(),
+                            "worst_tol_ratio": (tree_ring / f32_bound).max().item()}
+    check(errs["tree_vs_ring"]["worst_tol_ratio"] <= 1.0,
+          f"the tree's f32 sum vs the ring's: {errs['tree_vs_ring']}")
+    for fn in ("transform2", "transform_n", "encode_wire", "decode_wire", "decode_accumulate",
+               "encode_wire_q", "decode_wire_q", "decode_accumulate_q"):
+        check(calls[fn] > 0, f"the host walks never called the C++ {fn}")
+
+    # throughput of each host function on the 102 MB buffers: bytes each
+    # must move (inputs read once, output written once) over the median time
+    a, b, dst = hosts[0], hosts[1], work[0]
+    rates = {
+        "transform2": 3 * nbytes / _median_s(lambda: hops.transform2(dst, a, b, hops.ReduceOp.SUM)),
+        "transform_n_k4": (k + 1) * nbytes / _median_s(
+            lambda: hops.transform_n(dst, hosts, hops.ReduceOp.SUM)),
+    }
+    block = HOST_QWIRE[1]
+    for label, wire in (("bf16", DType.BF16), ("f16", DType.F16),
+                        ("int8", hops.QWire(8, block)), ("int4", hops.QWire(4, block))):
+        wn = hops.wire_nbytes(n, wire)
+        enc = pool.get(wn) if isinstance(wire, hops.QWire) else pool.get(wn).view(torch.uint16)
+        rates[f"encode_{label}"] = (nbytes + wn) / _median_s(
+            lambda: hops.encode_wire_any(enc, a, wire))
+        rates[f"decode_{label}"] = (nbytes + wn) / _median_s(
+            lambda: hops.decode_wire_any(dst, enc, wire))
+        rates[f"decode_accumulate_{label}"] = (2 * nbytes + wn) / _median_s(
+            lambda: hops.decode_accumulate_any(dst, 0, n, enc, wire, hops.ReduceOp.SUM))
+    rates = {key: v / 1e9 for key, v in rates.items()}
+
+    # the planning math on a seeded 8 x 8 bandwidth matrix
+    rng = np.random.default_rng(8)
+    bw = rng.uniform(1.0, 10.0, (8, 8))
+    bw[2, 5] = bw[5, 2] = 0.2  # one slow link
+    np.fill_diagonal(bw, 0.0)
+    t0 = time.perf_counter()
+    father = minimum_spanning_tree(1.0 / (bw + np.eye(8)))
+    mst_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plan = derive_plan(bw, "auto")
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    again = derive_plan(bw.copy(), "auto")
+    check(plan is not None and again.digest() == plan.digest(),
+          "two derivations of one ring plan gave different digests")
+
+    out = {"nvidia_smi": smi, "host_cpu": _host_cpu(), "host_cores": os.cpu_count(),
+           "peers": k, "values_per_peer": n, "bytes_per_peer": nbytes,
+           "images_per_peer": OPT_BATCH, "library": str(lib_path), "build_s": build_s,
+           "d2h_gb_per_s": k * nbytes / d2h_s / 1e9, "h2d_gb_per_s": k * nbytes / h2d_s / 1e9,
+           "walks": walks, "checks": errs,
+           "sum_max_abs": sum_max, "library_calls": calls, "gb_per_s": rates,
+           "mst": {"father": father, "ms": mst_ms},
+           "plan": {"order": list(plan.order), "weights": plan.weights, "gain": plan.gain,
+                    "digest": plan.digest().hex(), "ms": plan_ms},
+           "seconds": time.perf_counter() - t_phase}
+    emit("hostplane", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1350,6 +1696,7 @@ def main() -> int:
     resnet_phase(smi)
     optimizers_phase(smi)
     par_launches = parallel_phase(smi)
+    hostplane_phase(smi)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():

@@ -1,11 +1,14 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native libraries and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
 compiled for Hopper (`sm_90a`) at first use into `build/kungfu_tpu_torch/`
-beside the package. The library's file name carries a hash of its sources
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. There is no fallback: without nvcc a CUDA tensor cannot be served,
-and the error says so.
+beside the package. The host plane's C++ (`csrc/host/*.cpp`) becomes one
+more, compiled by the host C++ compiler for the machine it runs on
+(`compile_host_library`). A library's file name carries a hash of its
+sources and flags (for the host library also of the compiler's target),
+so an edited source is rebuilt and a stale library is never loaded. There
+is no fallback: without nvcc a CUDA tensor cannot be served, without a
+host compiler the host plane cannot reduce, and the error says so.
 """
 
 from __future__ import annotations
@@ -20,11 +23,14 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+HOST_CSRC = CSRC / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kungfu_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+# the flags of native/build.sh, which builds the JAX package's copy
+HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -65,26 +71,78 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def compile_library(name: str, nvcc: Optional[str] = None) -> Path:
-    """Compile csrc/<name>.cu unless the library for these sources exists.
-    Safe against concurrent builders: each writes a private file and
-    renames it into place."""
-    out = library_path(name)
+def _compile(out: Path, cmd: List[str], what: str) -> Path:
+    """Run `cmd` (which ends in `-o <tmp> <sources>`; the tmp path is
+    substituted here) unless `out` exists. Safe against concurrent
+    builders: each writes a private file and renames it into place."""
     if out.is_file():
         return out
-    nvcc = nvcc or find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [str(tmp) if c == "{tmp}" else c for c in cmd]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cmd[0]} could not run building {what}: {e}") from None
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed building {name} (exit {proc.returncode}):\n"
+            f"{cmd[0]} failed building {what} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
     return out
+
+
+def compile_library(name: str, nvcc: Optional[str] = None) -> Path:
+    """Compile csrc/<name>.cu unless the library for these sources exists."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    nvcc = nvcc or find_nvcc()
+    return _compile(out, [nvcc, *NVCC_FLAGS, "-o", "{tmp}", str(CSRC / f"{name}.cu")], name)
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX, else g++ or c++ on PATH."""
+    names = [os.environ["CXX"]] if os.environ.get("CXX") else ["g++", "c++"]
+    for n in names:
+        path = shutil.which(n)
+        if path:
+            return path
+    raise RuntimeError(
+        f"no host C++ compiler ({' or '.join(names)}) found: the host plane's C++ "
+        "(kungfu_tpu_torch/csrc/host) is built at first use and has no fallback"
+    )
+
+
+def _host_target(cxx: str) -> bytes:
+    """What `-march=native` means for `cxx` on this machine (its predefined
+    macros): a library built for one CPU is never loaded on another."""
+    try:
+        proc = subprocess.run([cxx, "-march=native", "-E", "-dM", "-x", "c++", os.devnull],
+                              capture_output=True)
+    except OSError as e:
+        raise RuntimeError(f"host C++ compiler {cxx} could not run: {e}") from None
+    return proc.stdout + proc.stderr
+
+
+def host_library_path(cxx: str) -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(_host_target(cxx))
+    for src in sorted(HOST_CSRC.glob("*.cpp")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkfhost-{h.hexdigest()[:16]}.so"
+
+
+def compile_host_library(cxx: Optional[str] = None) -> Path:
+    """Compile csrc/host/*.cpp into one library for this machine's CPU,
+    unless the library for these sources, flags and target exists."""
+    cxx = cxx or find_cxx()
+    sources = [str(s) for s in sorted(HOST_CSRC.glob("*.cpp"))]
+    return _compile(host_library_path(cxx), [cxx, *HOST_FLAGS, "-o", "{tmp}", *sources],
+                    "the host library")
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:

@@ -2,11 +2,12 @@
 
 Port of `kungfu_tpu/parallel/distributed.py`. Under kfrun a worker learns
 its place from the environment the runner sets (`KF_SELF_SPEC`,
-`KF_INIT_PEERS`, `KF_DEVICE_SLOTS`; the parsing is a private copy of
-`kungfu_tpu/runner/env.py`'s). Rank is this worker's index in the peer
-list and size the list's length. Every worker meets at rank 0's host on a
-port derived from rank 0's peer spec (20000-29999), which rank 0 checks
-is free before it opens the store there. NCCL on the card, gloo on the CPU,
+`KF_INIT_PEERS`, `KF_DEVICE_SLOTS`, read through the port's `knobs` and
+parsed by `plan.peer`, as `kungfu_tpu/runner/env.py` does). Rank is this
+worker's index in the peer list and size the list's length. Every worker
+meets at rank 0's host on a port derived from rank 0's peer spec
+(20000-29999), which rank 0 checks is free before it opens the store
+there. NCCL on the card, gloo on the CPU,
 unless the caller names the backend: gloo is the only way two ranks may
 share one card, as they must where a host has fewer cards than ranks.
 Before NCCL is set up, the ranks trade their card indices through the
@@ -19,7 +20,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import os
 import socket
 import time
 import zlib
@@ -28,11 +28,9 @@ from typing import Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from kungfu_tpu_torch import resolve_device
+from kungfu_tpu_torch import knobs, resolve_device
+from kungfu_tpu_torch.plan.peer import PeerID, PeerList
 
-SELF_SPEC = "KF_SELF_SPEC"
-INIT_PEERS = "KF_INIT_PEERS"
-DEVICE_SLOTS = "KF_DEVICE_SLOTS"
 # 20000-29999: below Linux's default ephemeral range (32768-60999), where
 # the kernel hands out ports to outgoing connections, and below kfrun's
 # default peer ports (38000-38999)
@@ -41,18 +39,22 @@ RENDEZVOUS_PORT_SPAN = 10000
 RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
 
 
-def _parse_peer(spec: str) -> Tuple[str, int]:
-    host, _, port = spec.strip().rpartition(":")
-    if not host or not port.isdigit():
-        raise ValueError(f"invalid peer spec: {spec!r}")
-    return host, int(port)
-
-
 @dataclasses.dataclass(frozen=True)
 class WorkerSpec:
+    """This worker's peer spec, the world's in rank order (`host:port`
+    strings), and the cards it may open."""
+
     self_spec: str
     peers: Tuple[str, ...]
     device_slots: Tuple[int, ...] = ()
+
+    @property
+    def self_id(self) -> PeerID:
+        return PeerID.parse(self.self_spec)
+
+    @property
+    def peer_list(self) -> PeerList:
+        return PeerList.from_json(self.peers)
 
     @property
     def rank(self) -> int:
@@ -64,31 +66,28 @@ class WorkerSpec:
 
     @property
     def local_rank(self) -> int:
-        host = _parse_peer(self.self_spec)[0]
-        return [_parse_peer(p)[0] for p in self.peers[:self.rank]].count(host)
+        return self.peer_list.local_rank(self.self_id)
 
 
 def parse_worker_env(environ: Optional[Mapping[str, str]] = None) -> WorkerSpec:
-    """This worker's spec from the runner's environment; without
-    `KF_SELF_SPEC`, a single-process world."""
-    env = os.environ if environ is None else environ
-    me = env.get(SELF_SPEC, "")
+    """This worker's spec from the runner's environment (`os.environ`
+    unless `environ` is given); without `KF_SELF_SPEC`, a single-process
+    world."""
+    me = knobs.get("KF_SELF_SPEC", environ)
     if not me:
         return WorkerSpec("127.0.0.1:10000", ("127.0.0.1:10000",))
-    _parse_peer(me)
-    peers = tuple(p.strip() for p in env.get(INIT_PEERS, me).split(",") if p.strip())
-    for p in peers:
-        _parse_peer(p)
-    if me not in peers:
-        raise ValueError(f"{SELF_SPEC}={me!r} is not in {INIT_PEERS}={peers!r}")
-    slots = tuple(int(s) for s in env.get(DEVICE_SLOTS, "").split(",") if s.strip())
-    return WorkerSpec(me, peers, slots)
+    self_id = PeerID.parse(me)
+    peers = PeerList.parse(knobs.get("KF_INIT_PEERS", environ) or me)
+    if not peers.contains(self_id):
+        raise ValueError(f"KF_SELF_SPEC={me!r} is not in KF_INIT_PEERS={peers.to_json()!r}")
+    slots = tuple(int(s) for s in knobs.get("KF_DEVICE_SLOTS", environ))
+    return WorkerSpec(str(self_id), tuple(peers.to_json()), slots)
 
 
 def rendezvous_address(spec: WorkerSpec) -> Tuple[str, int]:
     """(host, port) of the store every worker meets at: rank 0's host, a
     port fixed by rank 0's peer spec."""
-    host, _ = _parse_peer(spec.peers[0])
+    host = PeerID.parse(spec.peers[0]).host
     return host, RENDEZVOUS_PORT_BASE + zlib.crc32(spec.peers[0].encode()) % RENDEZVOUS_PORT_SPAN
 
 
@@ -155,8 +154,8 @@ def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = 
     store = dist.TCPStore(host, port, spec.size, spec.rank == 0, RENDEZVOUS_TIMEOUT)
     if backend == "nccl":
         store.set(f"kf_card/{spec.rank}", str(device.index))
-        me = _parse_peer(spec.self_spec)[0]
-        ranks = [r for r, p in enumerate(spec.peers) if _parse_peer(p)[0] == me]
+        me = spec.self_id
+        ranks = [r for r, p in enumerate(spec.peer_list) if p.colocated_with(me)]
         check_card_sharing(backend, ranks, [int(store.get(f"kf_card/{r}")) for r in ranks])
     dist.init_process_group(backend, store=store, world_size=spec.size, rank=spec.rank)
     return device

@@ -592,3 +592,68 @@ def test_cuda_tp_over_nccl_matches_dense():
     _build.build_all(["flash_attention"])
     n = 4 if torch.cuda.device_count() >= 4 else 2
     _spawn(_tp_nccl_worker, n, f"the {n} NCCL tensor-parallel ranks")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_cuda_staged_host_reduce_matches_the_card_sum(k):
+    """Card tensors staged through pinned BufferPool buffers (non_blocking
+    copies, synchronized before the host C++ reads them), reduced by the
+    port's transform_n on the host and copied back: the card's own sum of
+    the same values, in a summation order the test fixes on both sides."""
+    _need_card()
+    from kungfu_tpu_torch.base import ops
+    from kungfu_tpu_torch.utils.pool import BufferPool
+
+    n = 1_000_003
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    xs = [torch.randn(n, device="cuda", generator=gen) for _ in range(k)]
+    pool = BufferPool(pin_memory=True)
+    staged = [pool.get(4 * n).view(torch.float32) for _ in range(k)]
+    for s, x in zip(staged, xs):
+        assert s.is_pinned()
+        s.copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    out = pool.get(4 * n).view(torch.float32)
+    ops.transform_n(out, staged, ops.ReduceOp.SUM)
+    back = out.to("cuda", non_blocking=True)
+    want = xs[0].clone()
+    for x in xs[1:]:
+        want += x  # the C++'s order: ((x0 + x1) + x2) + x3
+    torch.cuda.synchronize()
+    assert torch.equal(back.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["BF16", "F16"])
+def test_cuda_staged_wire_codec_matches_its_plain_twin(wire):
+    """The 16-bit codec on card data staged to the host: the C++ encode,
+    decode and decode-accumulate bitwise equal to the plain twins, and the
+    decoded values equal to the card's own cast."""
+    _need_card()
+    from kungfu_tpu_torch.base import ops
+    from kungfu_tpu_torch.base.dtype import DType
+    from kungfu_tpu_torch.utils.pool import BufferPool
+
+    w = DType[wire]
+    n = 1_000_003
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(n, device="cuda", generator=gen) * 100
+    pool = BufferPool(pin_memory=True)
+    src = pool.get(4 * n).view(torch.float32)
+    src.copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    enc, enc_plain = (pool.get(2 * n).view(torch.uint16) for _ in range(2))
+    ops.encode_wire(enc, src, w)
+    ops.encode_wire_plain(enc_plain, src, w)
+    assert torch.equal(enc.view(torch.int16), enc_plain.view(torch.int16))
+    dec, dec_plain = torch.empty(n), torch.empty(n)
+    ops.decode_wire(dec, enc, w)
+    ops.decode_wire_plain(dec_plain, enc, w)
+    assert torch.equal(dec.view(torch.int32), dec_plain.view(torch.int32))
+    cast = x.to(w.to_torch()).float().cpu()  # the card rounds to nearest-even too
+    assert torch.equal(dec.view(torch.int32), cast.view(torch.int32))
+    acc, acc_plain = src.clone(), src.clone()
+    ops.decode_accumulate(acc, 0, n, enc, w, ops.ReduceOp.SUM)
+    ops.decode_accumulate_plain(acc_plain, 0, n, enc, w, ops.ReduceOp.SUM)
+    assert torch.equal(acc.view(torch.int32), acc_plain.view(torch.int32))

@@ -1,6 +1,6 @@
 """Boundaries of the port: kungfu_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package; entry points default to the CUDA card and raise
-without one; CPU tensors never reach a CUDA kernel wrapper."""
+JAX, ml_dtypes nor the JAX package; entry points default to the CUDA card
+and raise without one; CPU tensors never reach a CUDA kernel wrapper."""
 
 import json
 import pkgutil
@@ -15,6 +15,12 @@ import kungfu_tpu_torch
 from kungfu_tpu_torch.ops import flash_attention as tfa
 
 REPO = Path(__file__).resolve().parent.parent
+# the host plane's framework-free core
+HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base.strategy",
+                      "base.ops", "base._native", "base.workspace", "base.serialize",
+                      "plan.peer", "plan.hostspec", "plan.cluster", "plan.graph",
+                      "plan.topology", "plan.mst", "plan.replan", "collective.strategies",
+                      "utils.state", "utils.handoff", "utils.pool", "utils.stall")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -24,8 +30,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "kungfu_tpu")
-             or m.startswith(("jax.", "jaxlib.", "kungfu_tpu.")))
+             if m in ("jax", "jaxlib", "kungfu_tpu", "ml_dtypes")
+             or m.startswith(("jax.", "jaxlib.", "kungfu_tpu.", "ml_dtypes.")))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -41,9 +47,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kungfu_tpu_torch.models.resnet" in res["imported"]
     assert "kungfu_tpu_torch.bench" in res["imported"]
     for mod in ("graft_entry", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
-                "parallel.pipeline", "parallel.sharded"):
+                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in res["imported"]
-    assert len(res["imported"]) >= 28
+    assert len(res["imported"]) >= 28 + len(HOST_PLANE_MODULES)
 
 
 def test_every_module_of_the_slice_exists():
@@ -56,9 +62,11 @@ def test_every_module_of_the_slice_exists():
                 "examples.bert_ssgd", "optimizers", "models.resnet", "models.mlp",
                 "datasets", "datasets.idx", "examples.mnist_slp", "bench", "graft_entry",
                 "monitor", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
-                "parallel.pipeline", "parallel.sharded"):
+                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
+    for src in ("reduce.cpp", "mst.cpp"):
+        assert (REPO / "kungfu_tpu_torch" / "csrc" / "host" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
 
@@ -136,3 +144,15 @@ def test_nccl_refuses_two_ranks_on_one_card(backend, cards, refused):
         return
     with pytest.raises(ValueError, match=r"ranks 4 and \d+ are both on card cuda:0"):
         check_card_sharing(backend, ranks, cards)
+
+
+def test_no_module_of_the_port_names_the_jax_package_ml_dtypes_or_jax():
+    """Beyond what the import probe sees: no source of the port imports
+    them, even inside a function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|kungfu_tpu)\b", re.M)
+    sources = sorted((REPO / "kungfu_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 40
+    offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
