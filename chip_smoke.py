@@ -1499,7 +1499,9 @@ def hostplane_phase(smi: str) -> dict:
     staging through the port's BufferPool, the ring (f32, bf16, int8) and
     the default strategy's graph pair replayed through the host C++, each
     held bitwise against its plain replay and against the card's sum; the
-    host functions' throughput; the MST and a ring plan of an 8 x 8 matrix."""
+    host functions' throughput; the MST and a ring plan of an 8 x 8 matrix.
+    One process, so nothing here moves between peers: the `hostnet` phase
+    runs the same all-reduces between processes, over the transport."""
     import numpy as np
     import torch
 
@@ -1664,6 +1666,296 @@ def hostplane_phase(smi: str) -> dict:
     return out
 
 
+HOSTNET_RANKS = 4
+HOSTNET_DEADLINE_S = 400
+HOSTNET_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_host"
+HOSTNET_MSG_TURNS = 3
+# mode -> (KF_CONFIG_ALGO, KF_CONFIG_WIRE) of its fresh session, and the
+# in-process replay its first call must equal bitwise
+HOSTNET_MODES = {
+    "ring_f32": ("segmented", "off"),
+    "ring_bf16": ("segmented", "bf16"),
+    "ring_int8": ("segmented", "int8"),
+    "tree_f32": ("", "off"),  # DEFAULT_STRATEGY: BINARY_TREE_STAR, a star on one host
+}
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).numpy().tobytes()).hexdigest()
+
+
+def _hostnet_rank(rank: int, specs) -> dict:
+    """One worker of the hostnet phase: a Peer from kfrun's environment,
+    its ResNet-50 gradient, the host all-reduce in each mode over the
+    transport, one SGD step on the result, one 102 MB message."""
+    from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+    from kungfu_tpu_torch.runner.env import worker_env
+
+    peers = PeerList.parse(",".join(specs))
+    os.environ.update(worker_env(peers[rank], peers, PeerList(), None, device_slots=[0]))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    for knob in ("KF_CONFIG_ALGO", "KF_CONFIG_WIRE", "KF_CONFIG_SHM"):
+        os.environ.pop(knob, None)
+    import torch
+
+    from kungfu_tpu_torch import api, resolve_device
+    from kungfu_tpu_torch.base.ops import ReduceOp
+    from kungfu_tpu_torch.base.strategy import DEFAULT_STRATEGY
+    from kungfu_tpu_torch.base.workspace import Workspace
+    from kungfu_tpu_torch.collective.host_session import HostSession
+    from kungfu_tpu_torch.collective.profiler import get_walk_profiler
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.peer import get_default_peer
+    from kungfu_tpu_torch.transport.message import ConnType
+    from kungfu_tpu_torch.utils.pool import BufferPool
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    k = peer.size
+    device = resolve_device()
+    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    params = list(model.parameters())
+    gen = torch.Generator(device=device).manual_seed(400 + rank)
+    images = torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                         generator=gen)
+    labels = torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen)
+    resnet_loss(model, (images, labels)).backward()
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    torch.save(flat.cpu(), HOSTNET_OUT / f"grad{rank}.pt")
+    n = flat.numel()
+    pool = BufferPool(pin_memory=True)
+    host = pool.get(4 * n).view(torch.float32)
+    host.copy_(flat, non_blocking=True)
+    torch.cuda.synchronize()  # the host walks read the buffer next
+    base = peer.current_session()
+    out = {"rank": rank, "values": n, "modes": {}}
+
+    def timed(call, name, sess):
+        """The first call's result digest and the payload bytes this peer
+        sent in it, then the median ms of HOST_TURNS more calls, each
+        after a barrier, and the walk profiler's split of their time."""
+        frames0 = dict(peer.client.frames)
+        sent0 = dict(sess.wire_bytes)
+        first = call()
+        wire_bytes = {"/".join(key): v - sent0.get(key, 0) for key, v in sess.wire_bytes.items()
+                      if v != sent0.get(key, 0)}
+        digest = _digest(first)
+        agreed = base.bytes_consensus(digest.encode(), f"hostnet:{name}:digest")
+        times = []
+        walks = 0.0
+        for _ in range(HOST_TURNS):
+            base.barrier(f":{name}")
+            get_walk_profiler().reset()
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e3)
+            walks = get_walk_profiler().snapshot()  # the last call's walks
+        frames = {key: peer.client.frames[key] - frames0[key] for key in frames0}
+        split = {key: {f: w[f] for f in ("walks", "wall_s", "wait_frac", "send_frac",
+                                         "compute_frac")} for key, w in walks.items()}
+        return {"digest": digest, "agreed": agreed, "ms": sorted(times)[len(times) // 2],
+                "all_ms": times, "frames": frames, "wire_bytes": wire_bytes,
+                "walk_split": split}
+
+    for mode, (algo, wire) in HOSTNET_MODES.items():
+        os.environ["KF_CONFIG_ALGO"], os.environ["KF_CONFIG_WIRE"] = algo, wire
+        sess = HostSession(DEFAULT_STRATEGY, peer.self_id, peer.config.peers, peer.client,
+                           peer.collective)
+        sess.check_knob_consensus()
+        res = pool.get(4 * n).view(torch.float32)
+
+        def call(sess=sess, res=res, mode=mode):
+            sess.all_reduce(Workspace(host, res, ReduceOp.SUM, f"hostnet:{mode}"))
+            return res
+
+        out["modes"][mode] = timed(call, mode, sess)
+        out["modes"][mode]["strategy"] = sess.active_candidate_name()
+    os.environ.pop("KF_CONFIG_ALGO")
+    os.environ.pop("KF_CONFIG_WIRE")
+
+    reduced = None
+
+    def group_call():
+        nonlocal reduced
+        reduced = api.group_all_reduce_arrays(grads, name="hostnet:group")
+        return torch.cat([g.reshape(-1) for g in reduced])
+
+    out["modes"]["group"] = timed(group_call, "group", base)
+    out["modes"]["group"]["tensors"] = len(grads)
+    out["modes"]["group"]["strategy"] = base.active_candidate_name()
+    # one SGD step on the card from the all-reduced gradients' mean
+    for p, g in zip(params, reduced):
+        p.grad = g / k
+    torch.optim.SGD(params, lr=0.1).step()
+    param_digest = _digest(torch.cat([p.detach().reshape(-1) for p in params]))
+    out["param_digest"] = param_digest
+    out["params_agreed"] = base.bytes_consensus(param_digest.encode(), "hostnet:params")
+
+    # one 102 MB message rank 0 -> 1 and a 1-byte reply, shm on and off
+    msg = host.view(torch.uint8)
+    out["message_ms"] = {}
+    for shm in ("on", "off"):
+        os.environ["KF_CONFIG_SHM"] = "1" if shm == "on" else "0"
+        times = []
+        for i in range(HOSTNET_MSG_TURNS):
+            base.barrier(f":msg:{shm}:{i}")
+            name = f"hostnet:msg:{shm}:{i}"
+            if rank == 0:
+                t0 = time.perf_counter()
+                peer.client.send(peers[1], name, msg, ConnType.COLLECTIVE)
+                peer.collective.recv(peers[1], name + ":ack", 60)
+                times.append((time.perf_counter() - t0) * 1e3)
+            elif rank == 1:
+                got = pool.get(msg.nbytes)
+                m, filled = peer.collective.recv_into(peers[0], name, got, 60)
+                if not filled:
+                    got.copy_(torch.frombuffer(m.data, dtype=torch.uint8, count=msg.nbytes))
+                    if m.release is not None:
+                        m.release()
+                if i == 0:  # rank 0's gradient, saved before the modes ran
+                    sent = torch.load(HOSTNET_OUT / "grad0.pt").view(torch.uint8)
+                    out[f"message_intact_{shm}"] = _digest(got) == _digest(sent)
+                pool.put(got)
+                peer.client.send(peers[0], name + ":ack", b"\x01", ConnType.COLLECTIVE)
+        out["message_ms"][shm] = times
+    os.environ.pop("KF_CONFIG_SHM")
+    out["message_bytes"] = msg.nbytes
+    base.barrier(":end")
+    return out
+
+
+def hostnet_worker(rank: int, _spawned, specs) -> None:
+    from kungfu_tpu_torch.peer import finalize_default_peer
+
+    try:
+        out = _hostnet_rank(rank, specs)
+        (HOSTNET_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        finalize_default_peer()
+
+
+def _free_ports(n: int) -> list:
+    """n ports the kernel calls free (bound to 0, then closed), none in
+    kfrun's 38000-38999."""
+    import socket
+
+    socks, out = [], []
+    try:
+        while len(out) < n:
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+            if not 38000 <= s.getsockname()[1] < 39000:
+                out.append(s.getsockname()[1])
+    finally:
+        for s in socks:
+            s.close()
+    return out
+
+
+def hostnet_phase(smi: str, replay: dict) -> dict:
+    """The host all-reduce between processes: 4 workers on card 0, each a
+    Peer started from kfrun's environment, all-reduce their ResNet-50
+    gradients over the port's transport and engine (segmented ring in f32,
+    bf16 and int8, the default strategy, and api.group_all_reduce_arrays);
+    the parent holds each mode's first call bitwise against the in-process
+    replay of the saved inputs and the sums against the card's. `replay` is
+    the hostplane phase's walk times, the budget beside each mode's."""
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch.base import ops as hops
+    from kungfu_tpu_torch.base.dtype import DType
+    from kungfu_tpu_torch.base.strategy import DEFAULT_STRATEGY
+    from kungfu_tpu_torch.collective.strategies import gen_global_strategies
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.plan.peer import PeerList
+
+    t_phase = time.perf_counter()
+    k = HOSTNET_RANKS
+    HOSTNET_OUT.mkdir(parents=True, exist_ok=True)
+    for f in list(HOSTNET_OUT.glob("*.json")) + list(HOSTNET_OUT.glob("*.pt")):
+        f.unlink()
+    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    shm_stat = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+    spawn_world(hostnet_worker, k, HOSTNET_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((HOSTNET_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+    xs = [torch.load(HOSTNET_OUT / f"grad{r}.pt") for r in range(k)]
+    n = xs[0].numel()
+    nbytes = 4 * n
+
+    # the replays of the saved inputs, through the host C++
+    (pair,) = gen_global_strategies(PeerList.parse(",".join(specs)), DEFAULT_STRATEGY)
+    wires = {"ring_f32": None, "ring_bf16": DType.BF16, "ring_int8": hops.QWire(*HOST_QWIRE)}
+    want = {}
+    for mode, wire in wires.items():
+        want[mode] = ring_replay([x.clone() for x in xs], host_ops(), wire)[0]
+    want["tree_f32"] = graph_replay(xs, pair, host_ops())[0]
+    want["group"] = want["tree_f32"]
+    device = resolve_device()
+    card = torch.stack([x.to(device) for x in xs])
+    card_sum = card.sum(0)
+    abs_sum = card.abs().sum(0, dtype=torch.float64)
+    del card
+    sum_max = card_sum.abs().max().item()
+    f32_bound = 2 * (k - 1) * HOST_F32_ULP * abs_sum + HOST_F32_FLOOR
+    modes, checks = {}, {}
+    for mode, ref in want.items():
+        digests = [r["modes"][mode]["digest"] for r in ranks]
+        check(all(r["modes"][mode]["agreed"] for r in ranks) and len(set(digests)) == 1,
+              f"hostnet {mode}: the ranks hold different bits")
+        check(digests[0] == _digest(ref),
+              f"hostnet {mode}: the first call differs from its in-process replay")
+        err = (ref.to(device).double() - card_sum.double()).abs()
+        if mode.endswith("f32") or mode == "group":
+            ratio = (err / f32_bound).max().item()
+        else:
+            ratio = err.max().item() / (2 * sum_max * HOST_WIRE_EPS[mode.split("_")[1]])
+        checks[mode] = {"max_abs_err_vs_card": err.max().item(), "worst_tol_ratio": ratio}
+        check(bool(ref.isfinite().all()) and ratio <= 1.0,
+              f"hostnet {mode} vs the card's sum: {checks[mode]}")
+        per_rank = [r["modes"][mode] for r in ranks]
+        modes[mode] = {
+            "median_ms_per_rank": [m["ms"] for m in per_rank],
+            "median_ms": max(m["ms"] for m in per_rank),
+            "replay_ms": replay.get(mode, {}).get("ms"),
+            "strategy": per_rank[0]["strategy"],
+            "wire_bytes_per_rank": [m["wire_bytes"] for m in per_rank],
+            "frames_per_rank": [m["frames"] for m in per_rank],
+            # the last call's walks: seconds blocked on receives (wait),
+            # on sends (send), and the rest (reduce, codec, copies)
+            "walk_split_per_rank": [m["walk_split"] for m in per_rank],
+        }
+    # the ring sends 2 (k - 1) / k of its wire payload: N f32 bytes, or encoded
+    for mode, wire in wires.items():
+        wire_n = nbytes if wire is None else hops.wire_nbytes(n, wire)
+        modes[mode]["optimal_wire_bytes_per_rank"] = 2 * (k - 1) / k * wire_n
+    check(all(r["params_agreed"] for r in ranks)
+          and len({r["param_digest"] for r in ranks}) == 1,
+          "hostnet: the ranks' parameters differ after the SGD step")
+    check(ranks[1].get("message_intact_on") and ranks[1].get("message_intact_off"),
+          "hostnet: the 102 MB message arrived changed")
+    msg = {shm: {"ms": ranks[0]["message_ms"][shm],
+                 "gb_per_s": ranks[0]["message_bytes"] / (sorted(ranks[0]["message_ms"][shm])[
+                     HOSTNET_MSG_TURNS // 2] / 1e3) / 1e9}
+           for shm in ("on", "off")}
+    out = {"nvidia_smi": smi, "host_cpu": _host_cpu(), "host_cores": os.cpu_count(),
+           "ranks": k, "values_per_rank": n, "bytes_per_rank": nbytes,
+           "images_per_rank": OPT_BATCH, "peers": specs, "modes": modes, "checks": checks,
+           "sum_max_abs": sum_max, "message_rank0_to_1": msg,
+           "dev_shm_bytes": (shm_stat.f_blocks * shm_stat.f_frsize) if shm_stat else None,
+           "dev_shm_free_bytes": (shm_stat.f_bavail * shm_stat.f_frsize) if shm_stat else None,
+           "seconds": time.perf_counter() - t_phase}
+    emit("hostnet", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1696,7 +1988,8 @@ def main() -> int:
     resnet_phase(smi)
     optimizers_phase(smi)
     par_launches = parallel_phase(smi)
-    hostplane_phase(smi)
+    host = hostplane_phase(smi)
+    hostnet_phase(smi, host["walks"])
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():

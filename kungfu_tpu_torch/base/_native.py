@@ -1,5 +1,6 @@
 """ctypes binding of the port's host C++ (`csrc/host/reduce.cpp`,
-`csrc/host/mst.cpp`).
+`csrc/host/mst.cpp`, and the socket pump of `csrc/host/io_pump.cpp`,
+which `transport/_native_io.py` calls).
 
 Port of `kungfu_tpu/base/_native_reduce.py`. The library is built with
 the host C++ compiler at first use (`ops/_build.py`,
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "kf_decode_wire_q": [_P, _P, _I64, _I32, _I32],
     "kf_decode_accumulate_q": [_P, _P, _I64, _I32, _I32, _I32],
     "kf_mst": [_I64, _P, _P],
+    "kf_send2": [ctypes.c_int, _P, _I64, _P, _I64, ctypes.c_int],
+    "kf_recv_exact": [ctypes.c_int, _P, _I64, ctypes.c_int],
 }
 
 CALLS = {name.removeprefix("kf_"): 0 for name in _SIGNATURES}

@@ -119,8 +119,8 @@ def _choice(name: str, choices, *, empty_as: Optional[str] = None):
 
 # --- declarations ------------------------------------------------------
 # The reference's names, defaults, parsers and doc strings, for the knobs
-# the port reads: the worker contract the device plane and the logger
-# read, the log level, and the stall detector's switch.
+# the port reads: the worker contract the runner sets, the log level, the
+# stall detector's switch, and the collective engine's and transport's.
 
 _SEC_CONTRACT = "Worker contract (set by the runner)"
 _knob("KF_SELF_SPEC", "", _str,
@@ -139,12 +139,170 @@ _knob("KF_LOG_PREFIX", "", _str,
       "Per-worker log prefix (`rank/np`), set by the runner; falls back "
       "to `KF_SELF_SPEC`.",
       section=_SEC_CONTRACT, kind="str")
+_knob("KF_INIT_RUNNERS", "", _str,
+      "Comma-separated runner (supervisor) endpoints.",
+      section=_SEC_CONTRACT, kind="str")
+_knob("KF_PARENT_ID", "", _str,
+      "The spawning runner's `host:port`, empty for orphan workers.",
+      section=_SEC_CONTRACT, kind="str")
+_knob("KF_INIT_CLUSTER_VERSION", "0", _int,
+      "Cluster version the worker starts at (bumped by every resize).",
+      section=_SEC_CONTRACT, kind="int")
+_knob("KF_INIT_PROGRESS", "0", _int,
+      "Training progress (steps) restored into the elastic state on start.",
+      section=_SEC_CONTRACT, kind="int")
+_knob("KF_ALLREDUCE_STRATEGY", "BINARY_TREE_STAR", _stripped,
+      "Initial collective strategy name (see `base/strategy.py`; "
+      "`AUTO` lets `auto_select` pick from the topology).",
+      section=_SEC_CONTRACT, kind="str")
+_knob("KF_SPAWN_TS", "", _str,
+      "Unix timestamp the runner spawned this worker at; start() reports "
+      "spawn→ready latency from it.",
+      section=_SEC_CONTRACT, kind="float-ts")
 
 _SEC_ELASTIC = "Elastic / adaptation"
+_knob("KF_CONFIG_SERVER", "", _str,
+      "Config-server URL for elastic membership proposals "
+      "(empty = static cluster).",
+      section=_SEC_ELASTIC, kind="url")
+_knob("KF_ELASTIC_MODE", "", _str,
+      "Resize style: empty (delta resize in-process) or `reload` "
+      "(workers restart on membership change).",
+      section=_SEC_ELASTIC, kind="str")
 _knob("KF_CONFIG_ENABLE_STALL_DETECTION", "", _bool,
       "Truthy spelling logs collectives that exceed their deadline "
       "repeatedly until they complete.",
       section=_SEC_ELASTIC, kind="bool")
+
+# the collective engine's knobs: every `consensus` one decides rendezvous
+# names, message sizes or peer pairings, and HostSession.engine_knobs()
+# lists them for the knob consensus between peers
+_SEC_ENGINE = "Collective engine (cluster-agreed)"
+_knob("KF_CONFIG_ALGO", "",
+      _choice("KF_CONFIG_ALGO", ("", "tree", "segmented", "auto")),
+      "Forces the collective algorithm family: `tree` (rank-0 graph "
+      "walks), `segmented` (ring reduce-scatter/all-gather), or `auto` "
+      "(topology heuristic). Unset: no override — the session keeps its "
+      "configured strategy. Cluster-agreed: checked by "
+      "`check_knob_consensus` at every session epoch.",
+      section=_SEC_ENGINE, kind="choice", strict=True, consensus=True,
+      default_doc="(unset: no override)")
+_knob("KF_CONFIG_WIRE", "",
+      _choice("KF_CONFIG_WIRE", ("off", "bf16", "f16", "auto", "int8", "int4"),
+              empty_as="off"),
+      "Compressed wire format for f32 allreduce payloads: bf16/f16 "
+      "(2-byte, f32 ring accumulation), or block-scaled int8/int4 with "
+      "error-feedback residuals (`KF_WIRE_BLOCK` elements per scale); "
+      "`auto` resolves to bf16 for eligible payloads. Cluster-agreed.",
+      section=_SEC_ENGINE, kind="choice", strict=True, consensus=True,
+      default_doc="off")
+_knob("KF_CONFIG_WIRE_MIN_BYTES", str(64 << 10), _int,
+      "Payloads below this bypass the wire codec (keeps probe-sized "
+      "monitored traffic exact). Cluster-agreed.",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_WIRE_BLOCK", "16", _int,
+      "Elements per absmax scale block of the int8/int4 wire codec "
+      "(one f32 scale per block: smaller blocks track outliers, bigger "
+      "blocks amortize the 4-byte scale). Cluster-agreed: it decides "
+      "the byte length of every quantized message.",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_CONFIG_CHUNK_BYTES", "0", _int,
+      "Overrides the chunked-walk chunk size heuristic (0 = heuristic). "
+      "Cluster-agreed.",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_CONFIG_SEGMENT_MIN_BYTES", str(64 << 10), _int,
+      "Payloads below this fall back from the segmented ring to rank-0 "
+      "tree graphs (per-segment framing overhead dominates). "
+      "Cluster-agreed.",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_CONFIG_GROUP_WINDOW", "", _opt_int,
+      "Concurrent workspaces per batch in group collectives; default "
+      "scales with the cgroup-aware core count (min(8, cores)). "
+      "Local-only (not cluster-agreed).",
+      section=_SEC_ENGINE, kind="int", default_doc="min(8, cores)")
+_knob("KF_CONFIG_GROUP_FUSE_MIN", "4", _int,
+      "Minimum same-(dtype,op) tensors before group ops fuse them into "
+      "one contiguous walk. Cluster-agreed.",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_CONFIG_GROUP_BUCKET_BYTES", str(64 << 20), _int,
+      "Fused-bucket size cap for the 3-stage pack/walk/unpack pipeline. "
+      "Cluster-agreed (part of the fused workspace name).",
+      section=_SEC_ENGINE, kind="int", consensus=True)
+_knob("KF_CONFIG_ASYNC", "",
+      _choice("KF_CONFIG_ASYNC", ("off", "on", "auto"), empty_as="off"),
+      "Asynchronous collective scheduler: group allreduces submitted "
+      "per-tensor as gradients become ready launch from a background "
+      "thread and overlap backprop (`on`), or only when the session has "
+      "≥2 peers (`auto`). `off` runs the synchronous step-end group op. "
+      "Cluster-agreed: the mode decides the fused rendezvous names, so "
+      "it is checked by `check_knob_consensus` at every session epoch.",
+      section=_SEC_ENGINE, kind="choice", strict=True, consensus=True,
+      default_doc="off")
+_knob("KF_CONFIG_ZERO", "",
+      _choice("KF_CONFIG_ZERO", ("off", "on", "auto"), empty_as="off"),
+      "ZeRO-1 sharded weight update: gradients are reduce-scattered, "
+      "each peer runs the optimizer on (and holds state for) only its "
+      "1/k shard, and an all-gather of updated weights (bf16 on the "
+      "wire when `KF_CONFIG_WIRE` is active) broadcasts the result. "
+      "`on` shards on every multi-peer session, `auto` resolves to on "
+      "when the session has ≥2 peers, `off` keeps the replicated "
+      "update. Cluster-agreed: the mode decides the whole step's "
+      "rendezvous dataflow, so it is checked by `check_knob_consensus` "
+      "at every session epoch.",
+      section=_SEC_ENGINE, kind="choice", strict=True, consensus=True,
+      default_doc="off")
+_knob("KF_CONFIG_REPLAN", "",
+      _choice("KF_CONFIG_REPLAN",
+              ("off", "ring", "ring+segments", "auto", "hier"),
+              empty_as="off"),
+      "Measured-topology re-planning of the segmented ring: `ring` lets "
+      "the vote-driven re-plan reorder ring neighbours from the measured "
+      "link matrix, `ring+segments` additionally sizes segments by "
+      "measured per-peer throughput, `auto` == `ring+segments`, `hier` "
+      "derives TWO-LEVEL plans (per-host intra reduce/broadcast × an "
+      "inter-host ring over elected heads, falling back to the flat "
+      "measured ring on a single host group) and enables straggler "
+      "demotion, `off` keeps the naive rank-order ring. Cluster-agreed: "
+      "every peer must run the same lockstep re-plan rounds (and the "
+      "adopted plan decides segment bounds), so it is checked by "
+      "`check_knob_consensus` at every session epoch.",
+      section=_SEC_ENGINE, kind="choice", strict=True, consensus=True,
+      default_doc="off")
+_knob("KF_REPLAN_DEMOTE_PATIENCE", "3", _int,
+      "Closed decision-ledger windows the SAME peer must stay elected "
+      "critical (with straggler cause ≠ network-transient) before "
+      "`ReplanPolicy` votes it into the demoted role under "
+      "`KF_CONFIG_REPLAN=hier`; a recovered peer is promoted back after "
+      "the same number of clean windows. Cluster-agreed: demotion flips "
+      "the adopted plan's rendezvous dataflow, so every peer must apply "
+      "the same patience.",
+      section=_SEC_ENGINE, kind="int", strict=True, consensus=True)
+
+_SEC_TRANSPORT = "Transport / shared memory"
+_knob("KF_CONFIG_SHM", "1", lambda s: str(s).strip() != "0",
+      "Same-host transport rides a shared-memory ring unless this is "
+      "exactly `0`.",
+      section=_SEC_TRANSPORT, kind="bool")
+_knob("KF_CONFIG_SHM_CAPACITY", str(256 << 20), _int,
+      "Shared-memory arena size in bytes.",
+      section=_SEC_TRANSPORT, kind="int")
+_knob("KF_CONFIG_SHM_MIN_BYTES", str(256 << 10), _int,
+      "Frames smaller than this take the socket path (ring setup cost "
+      "beats small copies).",
+      section=_SEC_TRANSPORT, kind="int")
+
+_SEC_DEBUG = "Debug instrumentation"
+_knob("KF_DEBUG_PROTOCOL", "", _bool,
+      "Truthy installs the runtime collective-order sentinel "
+      "(`devtools/protowatch.py`): wraps the session's collective entry "
+      "points, keeps a per-peer rolling digest of (kind, name, dtype, "
+      "nbytes, strategy) per round, cross-checks it on the "
+      "knob-independent star walk at scheduler flush boundaries, and on "
+      "divergence reports each peer's first divergent call site as "
+      "`protocol_divergence` audit events + "
+      "`kungfu_debug_protocol_*` metrics — before the rendezvous hang, "
+      "not after. Off = protowatch never imported, hot path untouched.",
+      section=_SEC_DEBUG, kind="bool")
 
 _SEC_LOG = "Logging"
 _knob("KF_LOG_LEVEL", "", _stripped,

@@ -14,6 +14,15 @@ Before NCCL is set up, the ranks trade their card indices through the
 rendezvous store, and two ranks of one host on one card raise at once
 (NCCL itself would fail only at the first collective). Without kfrun a
 process is a world of one and no process group is formed.
+
+When this process runs a host-plane `Peer` (kfrun's workers call
+`peer.get_default_peer()`), the world forms over the peer's session
+instead, as the reference bootstraps its device plane: rank 0 picks a
+free port, the address travels by `broadcast_bytes` under
+`kungfu::devplane:v<cluster version>`, and every worker joins with its
+host-plane rank. A new cluster version forms a new world
+(`reinitialize_device_plane`), which the derived port could not: two
+versions of one peer list would meet on the same port.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import socket
+import threading
 import time
 import zlib
 from typing import Mapping, Optional, Sequence, Tuple
@@ -37,6 +47,9 @@ from kungfu_tpu_torch.plan.peer import PeerID, PeerList
 RENDEZVOUS_PORT_BASE = 20000
 RENDEZVOUS_PORT_SPAN = 10000
 RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
+
+_state = {"initialized": False, "version": -1}
+_lock = threading.RLock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,19 +151,27 @@ def check_card_sharing(backend: str, ranks: Sequence[int], cards: Sequence[int])
         first[card] = rank
 
 
-def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = None,
-                            backend: Optional[str] = None) -> torch.device:
-    """Join this worker's world and return the device it computes on
-    (None = its CUDA card). `backend` None means NCCL on the card and gloo
-    on the CPU. Idempotent."""
-    spec = parse_worker_env(environ)
-    device = _pick_device(device, spec)
-    if spec.size == 1 or dist.is_initialized():
-        return device
+def _free_port(host: str) -> int:
+    """A port the kernel calls free on `host`, reserved by binding 0, and
+    not one of kfrun's worker ports (38000-38999), which a joiner may be
+    given later."""
+    socks = []
+    try:
+        while True:
+            s = socket.socket()
+            socks.append(s)
+            s.bind(("127.0.0.1" if host == "localhost" else host, 0))
+            port = s.getsockname()[1]
+            if not 38000 <= port < 39000:
+                return port
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _join(spec: WorkerSpec, device: torch.device, backend: Optional[str], host: str,
+          port: int) -> None:
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    host, port = rendezvous_address(spec)
-    if spec.rank == 0:
-        check_port_free(host, port)
     store = dist.TCPStore(host, port, spec.size, spec.rank == 0, RENDEZVOUS_TIMEOUT)
     if backend == "nccl":
         store.set(f"kf_card/{spec.rank}", str(device.index))
@@ -158,12 +179,80 @@ def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = 
         ranks = [r for r, p in enumerate(spec.peer_list) if p.colocated_with(me)]
         check_card_sharing(backend, ranks, [int(store.get(f"kf_card/{r}")) for r in ranks])
     dist.init_process_group(backend, store=store, world_size=spec.size, rank=spec.rank)
-    return device
+
+
+def initialize_device_plane(device=None, environ: Optional[Mapping[str, str]] = None,
+                            backend: Optional[str] = None, peer=None) -> torch.device:
+    """Join this worker's world and return the device it computes on
+    (None = its CUDA card). `backend` None means NCCL on the card and gloo
+    on the CPU. `peer` is the host-plane Peer whose session carries the
+    bootstrap (default: the process's running default peer, if any);
+    without one the world meets on the port derived from rank 0's spec.
+    Idempotent."""
+    if peer is None:
+        from kungfu_tpu_torch.peer import running_default_peer
+
+        peer = running_default_peer()
+    with _lock:
+        if peer is None:
+            spec = parse_worker_env(environ)
+            device = _pick_device(device, spec)
+            if spec.size == 1 or dist.is_initialized():
+                _state["initialized"] = True
+                return device
+            host, port = rendezvous_address(spec)
+            if spec.rank == 0:
+                check_port_free(host, port)
+            _join(spec, device, backend, host, port)
+            _state["initialized"] = True
+            return device
+        sess = peer.current_session()
+        spec = WorkerSpec(str(peer.self_id), tuple(sess.peers.to_json()),
+                          tuple(peer.config.device_slots))
+        device = _pick_device(device, spec)
+        if _state["initialized"] or dist.is_initialized():
+            return device
+        if spec.size == 1:  # a world of one: local devices only
+            _state["initialized"] = True
+            _state["version"] = peer.cluster_version
+            return device
+        addr = f"{peer.self_id.host}:{_free_port(peer.self_id.host)}" if sess.rank == 0 else ""
+        addr = sess.broadcast_bytes(addr.encode(),
+                                    f"kungfu::devplane:v{peer.cluster_version}").decode()
+        host, _, port = addr.rpartition(":")
+        _join(spec, device, backend, host, int(port))
+        _state["initialized"] = True
+        _state["version"] = peer.cluster_version
+        return device
+
+
+def device_plane_initialized() -> bool:
+    return _state["initialized"]
+
+
+def current_device_plane_version() -> int:
+    """The cluster version the device plane's world was formed at over a
+    Peer's session; -1 when it formed without one, or has not."""
+    return _state["version"]
 
 
 def shutdown_device_plane() -> None:
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    with _lock:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+        _state["initialized"] = False
+        _state["version"] = -1
+
+
+def reinitialize_device_plane(device=None, backend: Optional[str] = None,
+                              peer=None) -> torch.device:
+    """Delta-mode elastic rebuild: the peer's new session -> a new world
+    (parity: NCCL ReInit per new cluster version,
+    nccl/controller.hpp:14-44). The caller drops what it holds of the old
+    world's groups first."""
+    with _lock:
+        shutdown_device_plane()
+        return initialize_device_plane(device, backend=backend, peer=peer)
 
 
 def spawn_world(worker, n: int, deadline_s: float, args=()) -> None:

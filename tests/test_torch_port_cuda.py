@@ -657,3 +657,66 @@ def test_cuda_staged_wire_codec_matches_its_plain_twin(wire):
     ops.decode_accumulate(acc, 0, n, enc, w, ops.ReduceOp.SUM)
     ops.decode_accumulate_plain(acc_plain, 0, n, enc, w, ops.ReduceOp.SUM)
     assert torch.equal(acc.view(torch.int32), acc_plain.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_host_all_reduce_round_trips_card_tensors_through_pinned_buffers(dtype, monkeypatch):
+    """`api.all_reduce_array` on a card's tensor in a world of 3 in-process
+    peers: staged to the host through the pinned pool, reduced by the
+    engine over the transport, back on the tensor's own card, equal to
+    the card's own sum (integer values: exact in either dtype)."""
+    _need_card()
+    from kungfu_tpu_torch import api
+    from kungfu_tpu_torch.base.strategy import Strategy
+    from kungfu_tpu_torch.peer import Peer
+    from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+    from kungfu_tpu_torch.runner.env import WorkerConfig
+
+    socks, ports = [], []
+    while len(ports) < 3:  # free ports, none in kfrun's 38000-38999
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        if not 38000 <= s.getsockname()[1] < 39000:
+            ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    pl = PeerList(PeerID("127.0.0.1", p) for p in ports)
+    world = [Peer(WorkerConfig(self_id=me, peers=pl, runners=PeerList(), parent=None,
+                               cluster_version=0, strategy=Strategy.STAR, config_server="",
+                               elastic_mode="", init_progress=0)) for me in pl]
+    tls = threading.local()
+    monkeypatch.setattr(api, "get_default_peer", lambda: tls.peer)
+    xs = [(torch.arange(3000, device="cuda") % 97 + r).to(dtype).reshape(30, 100)
+          for r in range(3)]
+    outs, errs = {}, []
+
+    def run(r, fn):
+        tls.peer = world[r]
+        try:
+            outs[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    def all_threads(fn):
+        ts = [threading.Thread(target=run, args=(r, fn)) for r in range(3)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        if errs:
+            raise errs[0]
+
+    try:
+        all_threads(lambda r: world[r].start())
+        all_threads(lambda r: api.all_reduce_array(xs[r], name="card"))
+    finally:
+        for p in world:
+            p.stop()
+    want = sum(x.float() for x in xs).to(dtype)
+    for r in range(3):
+        got = outs[r]
+        assert got.device == xs[r].device and got.dtype == dtype and got.shape == (30, 100)
+        assert torch.equal(got, want)
+    assert api._pinned_pool().pin_memory and api._pinned_pool().cached_bytes() > 0

@@ -20,7 +20,14 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "base.ops", "base._native", "base.workspace", "base.serialize",
                       "plan.peer", "plan.hostspec", "plan.cluster", "plan.graph",
                       "plan.topology", "plan.mst", "plan.replan", "collective.strategies",
-                      "utils.state", "utils.handoff", "utils.pool", "utils.stall")
+                      "utils.state", "utils.handoff", "utils.pool", "utils.stall",
+                      # the host plane over its transport
+                      "utils.trace", "transport", "transport.message", "transport._native_io",
+                      "transport.shm", "transport.server", "transport.client",
+                      "transport.handlers", "store", "store.versioned", "runner", "runner.env",
+                      "collective.codec", "collective.profiler", "collective.adaptive",
+                      "collective.walks", "collective.pipeline", "collective.host_session",
+                      "peer", "api")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -65,7 +72,7 @@ def test_every_module_of_the_slice_exists():
                 "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
-    for src in ("reduce.cpp", "mst.cpp"):
+    for src in ("reduce.cpp", "mst.cpp", "io_pump.cpp"):
         assert (REPO / "kungfu_tpu_torch" / "csrc" / "host" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 

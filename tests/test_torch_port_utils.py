@@ -40,6 +40,15 @@ def test_each_knob_reads_the_environment_as_the_reference(name, monkeypatch):
     for s in SAMPLES:
         monkeypatch.setenv(name, s)
         assert knobs.raw(name) == rknobs.raw(name), s
+        if mine.strict:  # a malformed value raises, as the reference's does
+            try:
+                want = rknobs.get(name)
+            except ValueError as e:
+                with pytest.raises(ValueError) as got:
+                    knobs.get(name)
+                assert str(got.value) == str(e), s
+                continue
+            assert knobs.get(name) == want, s
         assert knobs.get(name) == rknobs.get(name), s
         assert knobs.is_set(name)
         # a mapping passed in reads as the environment does
@@ -70,9 +79,17 @@ def test_choice_parser_matches_the_reference():
 
 
 def test_registry_and_doc():
-    assert set(knobs.names()) == {"KF_SELF_SPEC", "KF_INIT_PEERS", "KF_DEVICE_SLOTS",
-                                  "KF_LOG_PREFIX", "KF_CONFIG_ENABLE_STALL_DETECTION",
-                                  "KF_LOG_LEVEL", "KF_CONFIG_LOG_LEVEL"}
+    assert set(knobs.names()) == {
+        "KF_SELF_SPEC", "KF_INIT_PEERS", "KF_DEVICE_SLOTS", "KF_LOG_PREFIX",
+        "KF_CONFIG_ENABLE_STALL_DETECTION", "KF_LOG_LEVEL", "KF_CONFIG_LOG_LEVEL",
+        # the worker contract of runner/env.py, and the transport's and engine's
+        "KF_INIT_RUNNERS", "KF_PARENT_ID", "KF_INIT_CLUSTER_VERSION", "KF_INIT_PROGRESS",
+        "KF_ALLREDUCE_STRATEGY", "KF_SPAWN_TS", "KF_CONFIG_SERVER", "KF_ELASTIC_MODE",
+        "KF_CONFIG_ALGO", "KF_CONFIG_WIRE", "KF_CONFIG_WIRE_MIN_BYTES", "KF_WIRE_BLOCK",
+        "KF_CONFIG_CHUNK_BYTES", "KF_CONFIG_SEGMENT_MIN_BYTES", "KF_CONFIG_GROUP_WINDOW",
+        "KF_CONFIG_GROUP_FUSE_MIN", "KF_CONFIG_GROUP_BUCKET_BYTES", "KF_CONFIG_ASYNC",
+        "KF_CONFIG_ZERO", "KF_CONFIG_REPLAN", "KF_REPLAN_DEMOTE_PATIENCE", "KF_CONFIG_SHM",
+        "KF_CONFIG_SHM_CAPACITY", "KF_CONFIG_SHM_MIN_BYTES", "KF_DEBUG_PROTOCOL"}
     doc = knobs.render_doc()
     theirs = set(rknobs.render_doc().splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
