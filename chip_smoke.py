@@ -94,7 +94,29 @@ Phases, each printing one JSON line:
            plain replay's), transform2 / transform_n (k 4) / codec GB/s on the
            102 MB buffers, pinned device-to-host and host-to-device GB/s, the
            host CPU, and the MST and ring plan (with its digest, derived
-           twice) of a seeded 8 x 8 bandwidth matrix.
+           twice) of a seeded 8 x 8 bandwidth matrix;
+  hostnet  4 worker processes on card 0, each a Peer from kfrun's
+           environment, all-reduce their ResNet-50 gradients over the
+           transport (segmented ring in f32, bf16 and int8, the default
+           tree, `api.group_all_reduce_arrays`); each mode's first call
+           bitwise equal to the in-process replay of the saved inputs;
+  sma      BASELINE config 3: `examples/bert_sma.main` on 4 worker
+           processes sharing card 0 (BERT-base, a fixed 8 x 512 masked-LM
+           batch a rank, 6 steps of AdamW and the SMA blend over the host
+           plane); gates: finite losses falling on every rank, 12 x 6
+           launches of each flash kernel a rank, step 0's sums equal across
+           ranks and the embedding's equal to its in-process replay, each
+           rank's blended parameters bitwise the blend formula on its saved
+           inputs, rank 0's first loss within RTOL of the plain core; the
+           local step's ms and the blend's split (copy out, walk, copy back
+           and blend);
+  async    4 worker processes, KF_CONFIG_ASYNC and KF_CONFIG_ZERO on:
+           ResNet-50 at 16 images a rank, 4 SGD steps by the frontend's
+           S-SGD through post-accumulate-grad hooks, by its step-end path,
+           and by ZeroSGD, every tensor a bucket of its own; gates: the
+           three bitwise equal after every step and across ranks, ZeRO's
+           state at most a quarter of the parameters plus slack; step ms
+           and the scheduler's stats, and the hooks at the default cap.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -1686,18 +1708,30 @@ def _digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().view(-1).numpy().tobytes()).hexdigest()
 
 
-def _hostnet_rank(rank: int, specs) -> dict:
-    """One worker of the hostnet phase: a Peer from kfrun's environment,
-    its ResNet-50 gradient, the host all-reduce in each mode over the
-    transport, one SGD step on the result, one 102 MB message."""
-    from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+def _worker_env(rank: int, specs, **knobs) -> None:
+    """This process's environment as kfrun's worker `rank` of `specs` on
+    card 0, with the engine `knobs` and no others."""
+    from kungfu_tpu_torch.plan.peer import PeerList
     from kungfu_tpu_torch.runner.env import worker_env
 
     peers = PeerList.parse(",".join(specs))
     os.environ.update(worker_env(peers[rank], peers, PeerList(), None, device_slots=[0]))
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    for knob in ("KF_CONFIG_ALGO", "KF_CONFIG_WIRE", "KF_CONFIG_SHM"):
+    for knob in ("KF_CONFIG_ALGO", "KF_CONFIG_WIRE", "KF_CONFIG_SHM", "KF_CONFIG_ASYNC",
+                 "KF_CONFIG_ZERO", "KF_CONFIG_SEGMENT_MIN_BYTES",
+                 "KF_CONFIG_GROUP_BUCKET_BYTES"):
         os.environ.pop(knob, None)
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+
+
+def _hostnet_rank(rank: int, specs) -> dict:
+    """One worker of the hostnet phase: a Peer from kfrun's environment,
+    its ResNet-50 gradient, the host all-reduce in each mode over the
+    transport, one SGD step on the result, one 102 MB message."""
+    from kungfu_tpu_torch.plan.peer import PeerList
+
+    _worker_env(rank, specs)
+    peers = PeerList.parse(",".join(specs))
     import torch
 
     from kungfu_tpu_torch import api, resolve_device
@@ -1830,12 +1864,12 @@ def _hostnet_rank(rank: int, specs) -> dict:
 
 
 def hostnet_worker(rank: int, _spawned, specs) -> None:
-    from kungfu_tpu_torch.peer import finalize_default_peer
-
     try:
         out = _hostnet_rank(rank, specs)
         (HOSTNET_OUT / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
         finalize_default_peer()
 
 
@@ -1956,6 +1990,307 @@ def hostnet_phase(smi: str, replay: dict) -> dict:
     return out
 
 
+SMA_RANKS = 4
+SMA_STEPS = 6
+SMA_DEADLINE_S = 600
+SMA_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_sma"
+ASYNC_RANKS = 4
+ASYNC_STEPS = 4
+ASYNC_LR = 0.1
+ASYNC_DEADLINE_S = 600
+ASYNC_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_async"
+# the async phase's runs: (path, KF_CONFIG_GROUP_BUCKET_BYTES). A cap of
+# one byte gives every tensor a bucket of its own, in any registration
+# order, so the hook path (autograd's order), the step-end path and ZeRO
+# (parameter order) walk the same segments and must agree bit for bit; the
+# last run times the hooks at the default cap
+ASYNC_RUNS = (("hooks", 1), ("step_end", 1), ("zero", 1), ("hooks_default_cap", 64 << 20))
+
+
+def _sma_rank(rank: int, specs) -> dict:
+    """One worker of the sma phase: `examples/bert_sma.main` at BERT-base
+    width; after step 0 (and the last) the blend's saved inputs are held
+    against the blend formula, and step 0's sums are digested."""
+    _worker_env(rank, specs)
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch.examples import bert_sma, bert_ssgd
+    from kungfu_tpu_torch.ops import flash_attention as fa
+    from kungfu_tpu_torch.peer import get_default_peer
+
+    out = {"rank": rank, "blend_exact": {}}
+
+    def plain_core(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=True)
+
+    def on_start(tr):
+        if rank == 0:  # the first loss again, kernel core vs plain core
+            inputs, targets, mask = tr.batch
+            with torch.no_grad():
+                tree = tr.model.tree()
+                out["kernel_core_loss"] = bert_ssgd.mlm_loss(
+                    tree, inputs, targets, mask, tr.cfg, core=bert_ssgd.flash_core).item()
+                out["plain_core_loss"] = bert_ssgd.mlm_loss(
+                    tree, inputs, targets, mask, tr.cfg, core=plain_core).item()
+        fa.reset_launches()  # the counts of the main path's run alone
+
+    def on_step(tr, step, rec):
+        if step == 0:
+            h = hashlib.sha256()
+            for s in tr.sums:
+                h.update(s.numpy().data)
+            out["sum_digest"] = h.hexdigest()
+            sess = get_default_peer().current_session()
+            out["sum_agreed"] = sess.bytes_consensus(out["sum_digest"].encode(), "sma:sums")
+            torch.save(tr.host_leaves[0].clone(), SMA_OUT / f"embed_in{rank}.pt")
+            torch.save(tr.sums[0].clone(), SMA_OUT / f"embed_sum{rank}.pt")
+        if step in (0, SMA_STEPS - 1):
+            # examples/bert_sma.py:121 in numpy on the saved inputs
+            n, exact = tr.n, True
+            for leaf, h, s in zip(tr.leaves, tr.host_leaves, tr.sums):
+                l, sv = h.numpy(), s.numpy()
+                want = l + SMA_ALPHA * (sv / n - l)
+                exact &= leaf.detach().reshape(-1).cpu().numpy().tobytes() == want.tobytes()
+            out["blend_exact"][step] = exact
+
+    argv = ["--config", "bert-base", "--batch", str(B), "--seq", str(S), "--steps",
+            str(SMA_STEPS), "--alpha", str(SMA_ALPHA), "--fixed-batch", "--device", "cuda"]
+    res = bert_sma.main(argv, on_start=on_start, on_step=on_step)
+    out["launches"] = dict(fa.LAUNCHES)
+    out.update(res)
+    sess = get_default_peer().current_session()
+    out["wire_bytes"] = {"/".join(key): v for key, v in sess.wire_bytes.items()}
+    out["leaf_values"] = [l.numel() for l in bert_sma.leaves_of(
+        bert_sma.make_model(bert_sma.config("bert-base"), 0, "cpu"))]
+    sess.barrier(":sma:end")
+    return out
+
+
+def sma_worker(rank: int, _spawned, specs) -> None:
+    try:
+        out = _sma_rank(rank, specs)  # sets the engine knobs before the engine's import
+        (SMA_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def sma_phase(smi: str) -> list:
+    """BASELINE config 3 at full width: 4 workers on card 0, each a Peer
+    from kfrun's environment, run `examples/bert_sma.main` (BERT-base, 8 x
+    512 fixed masked-LM batch a rank, AdamW, then the SMA blend over the
+    host plane) for 6 steps. Returns each rank's flash launches."""
+    import torch
+
+    from kungfu_tpu_torch.base.strategy import DEFAULT_STRATEGY
+    from kungfu_tpu_torch.collective.strategies import gen_global_strategies
+    from kungfu_tpu_torch.models.transformer import TransformerConfig
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.plan.peer import PeerList
+
+    t_phase = time.perf_counter()
+    k = SMA_RANKS
+    SMA_OUT.mkdir(parents=True, exist_ok=True)
+    for f in list(SMA_OUT.glob("*.json")) + list(SMA_OUT.glob("*.pt")):
+        f.unlink()
+    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    spawn_world(sma_worker, k, SMA_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((SMA_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+    cfg = TransformerConfig.bert_base()
+    for r in ranks:
+        losses = r["losses"]
+        check(len(losses) == SMA_STEPS and all(math.isfinite(x) for x in losses),
+              f"sma rank {r['rank']}: losses {losses}")
+        check(sum(losses[-3:]) / 3 < losses[0], f"sma rank {r['rank']}: loss did not fall "
+              f"{losses}")
+        for name, n in r["launches"].items():
+            check(n == cfg.n_layers * SMA_STEPS,
+                  f"sma rank {r['rank']}: {name} launched {n} times, want "
+                  f"{cfg.n_layers} x {SMA_STEPS}")
+        check(all(r["blend_exact"].values()) and len(r["blend_exact"]) == 2,
+              f"sma rank {r['rank']}: the blended parameters differ from the formula "
+              f"{r['blend_exact']}")
+    check(all(r["sum_agreed"] for r in ranks) and len({r["sum_digest"] for r in ranks}) == 1,
+          "sma: step 0's sums differ across ranks")
+    # the embedding leaf's sum, replayed in one process from the saved inputs
+    (pair,) = gen_global_strategies(PeerList.parse(",".join(specs)), DEFAULT_STRATEGY)
+    xs = [torch.load(SMA_OUT / f"embed_in{r}.pt") for r in range(k)]
+    replay = graph_replay(xs, pair, host_ops())
+    for r in range(k):
+        got = torch.load(SMA_OUT / f"embed_sum{r}.pt")
+        check(_digest(got) == _digest(replay[r]),
+              f"sma rank {r}: the embedding's sum differs from its in-process replay")
+    r0 = ranks[0]
+    gap = abs(r0["kernel_core_loss"] - r0["plain_core_loss"])
+    check(gap <= RTOL * abs(r0["plain_core_loss"]),
+          f"sma: kernel-core loss {r0['kernel_core_loss']} vs plain {r0['plain_core_loss']}")
+    check(abs(r0["losses"][0] - r0["kernel_core_loss"]) <= RTOL * abs(r0["kernel_core_loss"]),
+          f"sma: first loss {r0['losses'][0]} vs recomputed {r0['kernel_core_loss']}")
+    for f in SMA_OUT.glob("*.pt"):
+        f.unlink()  # 750 MB of saved leaves
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    emit("sma", nvidia_smi=smi, ranks=k, config="bert-base", layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=B, seq=S, steps=SMA_STEPS, alpha=SMA_ALPHA,
+         params_per_rank=r0["params"], bytes_per_rank=4 * r0["params"],
+         leaves=len(r0["leaf_values"]), leaf_values=r0["leaf_values"],
+         losses=[r["losses"] for r in ranks],
+         step_ms=[r["step_ms"] for r in ranks], local_ms=[r["local_ms"] for r in ranks],
+         d2h_ms=[r["d2h_ms"] for r in ranks], walk_ms=[r["walk_ms"] for r in ranks],
+         h2d_blend_ms=[r["h2d_blend_ms"] for r in ranks],
+         median_ms={key: max(med(r[key][1:]) for r in ranks) for key in
+                    ("step_ms", "local_ms", "d2h_ms", "walk_ms", "h2d_blend_ms")},
+         wire_bytes_per_rank=[r["wire_bytes"] for r in ranks],
+         launches=[r["launches"] for r in ranks], kernel_core_loss=r0["kernel_core_loss"],
+         plain_core_loss=r0["plain_core_loss"], rtol=RTOL, sum_digest=r0["sum_digest"],
+         seconds=time.perf_counter() - t_phase)
+    return [r["launches"] for r in ranks]
+
+
+def _async_rank(rank: int, specs) -> dict:
+    """One worker of the async phase: ResNet-50 at 16 images a rank, 4
+    SGD steps of each run of ASYNC_RUNS from the same initial parameters
+    and batches, each run in a cluster epoch of its own."""
+    _worker_env(rank, specs, KF_CONFIG_ASYNC="on", KF_CONFIG_ZERO="on", KF_CONFIG_WIRE="off",
+                KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES=0)
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch import torch as kf
+    from kungfu_tpu_torch.collective.host_session import HostSession
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.peer import get_default_peer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    device = resolve_device()
+    gen = torch.Generator(device=device).manual_seed(500 + rank)
+    batches = [(torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                            generator=gen),
+                torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+               for _ in range(ASYNC_STEPS)]
+
+    class FormulaSGD(torch.optim.Optimizer):
+        """SGD as ZeRO's ShardedSGD computes it: p -= lr * g, the product
+        rounded on its own."""
+
+        def __init__(self, ps):
+            super().__init__(ps, {"lr": ASYNC_LR})
+
+        @torch.no_grad()
+        def step(self, closure=None):
+            for group in self.param_groups:
+                for p in group["params"]:
+                    p.sub_(p.grad * group["lr"])
+
+    out = {"rank": rank, "runs": {}}
+    for run, cap in ASYNC_RUNS:
+        HostSession.GROUP_BUCKET_BYTES = cap
+        peer.cluster_version += 1  # a fresh epoch: its scheduler registers this run's tensors
+        peer._update_to(peer.config.peers)
+        sess = peer.current_session()
+        # a model of its own (an earlier run's hooks stay on its parameters)
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = list(model.parameters())
+        out["param_bytes"], out["tensors"] = sum(p.numel() * 4 for p in params), len(params)
+        if run == "zero":
+            opt = kf.ZeroSGDOptimizer(model, lr=ASYNC_LR, name="async")
+        else:
+            opt = kf.SynchronousSGDOptimizer(FormulaSGD(params), name="async",
+                                             async_hooks=False if run == "step_end" else None)
+        digests, ms = [], []
+        for step in range(ASYNC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            resnet_loss(model, batches[step]).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            digests.append(_digest(torch.cat([p.detach().reshape(-1) for p in params])))
+        agreed = sess.bytes_consensus("".join(digests).encode(), f"async:{run}")
+        rec = {"digests": digests, "agreed": agreed, "step_ms": ms, "bucket_cap": cap,
+               "stats": sess.scheduler().stats()}
+        if run == "zero":
+            rec.update(mode=opt._mode, state_bytes=opt.state_bytes(),
+                       buckets=opt._zs.bucket_count())
+        else:
+            rec["hooks"] = opt._hooks_installed
+        out["runs"][run] = rec
+    sess.barrier(":async:end")
+    return out
+
+
+def async_worker(rank: int, _spawned, specs) -> None:
+    try:
+        out = _async_rank(rank, specs)  # sets the engine knobs before the engine's import
+        (ASYNC_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def async_phase(smi: str) -> None:
+    """The scheduler and ZeRO on ResNet-50: 4 workers on card 0 in one
+    world (KF_CONFIG_ASYNC and KF_CONFIG_ZERO on, the wire codec off, the
+    segmented ring) train 4 SGD steps by S-SGD through the
+    post-accumulate-grad hooks, by its step-end path, and by ZeroSGD;
+    their parameters must agree bit for bit after every step, on every
+    rank."""
+    t_phase = time.perf_counter()
+    k = ASYNC_RANKS
+    ASYNC_OUT.mkdir(parents=True, exist_ok=True)
+    for f in ASYNC_OUT.glob("*.json"):
+        f.unlink()
+    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+
+    spawn_world(async_worker, k, ASYNC_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((ASYNC_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+    runs = [name for name, _ in ASYNC_RUNS]
+    for name in runs:
+        check(all(r["runs"][name]["agreed"] for r in ranks)
+              and len({tuple(r["runs"][name]["digests"]) for r in ranks}) == 1,
+              f"async {name}: the ranks' parameters differ")
+    for step in range(ASYNC_STEPS):
+        got = {name: ranks[0]["runs"][name]["digests"][step] for name in runs[:3]}
+        check(len(set(got.values())) == 1, f"async step {step}: the paths differ {got}")
+    r0 = ranks[0]
+    check(r0["runs"]["hooks"]["hooks"] and not r0["runs"]["step_end"]["hooks"]
+          and r0["runs"]["zero"]["mode"] == "sharded", "async: a path did not run as asked")
+    check(r0["runs"]["hooks"]["stats"]["units"] > 0 and r0["runs"]["zero"]["stats"]["zero_units"] > 0,
+          "async: the scheduler walked nothing")
+    slack = 8 * r0["runs"]["zero"]["buckets"]  # tests/test_zero.py's bound
+    for r in ranks:
+        z = r["runs"]["zero"]
+        check(z["state_bytes"] <= r["param_bytes"] // k + slack,
+              f"async rank {r['rank']}: ZeRO holds {z['state_bytes']} B of state, over 1/{k} "
+              f"of {r['param_bytes']} + {slack}")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    emit("async", nvidia_smi=smi, ranks=k, images_per_rank=OPT_BATCH, steps=ASYNC_STEPS,
+         tensors=r0["tensors"], param_bytes=r0["param_bytes"],
+         step_ms={name: [r["runs"][name]["step_ms"] for r in ranks] for name in runs},
+         median_step_ms={name: max(med(r["runs"][name]["step_ms"][1:]) for r in ranks)
+                         for name in runs},
+         bucket_cap={name: cap for name, cap in ASYNC_RUNS},
+         stats={name: [r["runs"][name]["stats"] for r in ranks] for name in runs},
+         zero_state_bytes=[r["runs"]["zero"]["state_bytes"] for r in ranks],
+         zero_buckets=r0["runs"]["zero"]["buckets"], digests=r0["runs"]["hooks"]["digests"],
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -1990,6 +2325,8 @@ def main() -> int:
     par_launches = parallel_phase(smi)
     host = hostplane_phase(smi)
     hostnet_phase(smi, host["walks"])
+    sma_launches = sma_phase(smi)
+    async_phase(smi)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():
@@ -2001,6 +2338,7 @@ def main() -> int:
             # a step, per rank: the pipeline's 4 steps and TP's 3 divided out
             "pipeline_launches_per_step": [r[key] / PP_STEPS for r in par_launches["pipeline"]],
             "tp_launches_per_step": [r[key] / TP_STEPS for r in par_launches["tp"]],
+            "sma_launches": [r[key] for r in sma_launches],
             "max_abs_err": kern["errs"][kname], "max_err": kern["errs"][kname],
             "ms": kern["ms"][kname], "ms_cold_l2": kern["ms_cold"][kname],
             "plain_ms": kern["plain_ms"][kname],

@@ -11,21 +11,21 @@ it with ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch
+import torch as _torch
 
 __version__ = "0.1.0"
 
 __all__ = ["__version__", "resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> _torch.device:
     """``None`` -> the current CUDA device, raising RuntimeError if there is
     no card; anything else -> ``torch.device(device)``, unchanged."""
     if device is None:
-        if not torch.cuda.is_available():
+        if not _torch.cuda.is_available():
             raise RuntimeError(
                 "kungfu_tpu_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run on the CPU"
             )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+        return _torch.device("cuda", _torch.cuda.current_device())
+    return _torch.device(device)

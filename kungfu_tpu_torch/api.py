@@ -9,9 +9,12 @@ module's `BufferPool`, is reduced there, and comes back on its own device;
 a CPU tensor is reduced in CPU memory. Results are new tensors of the
 input's shape, dtype and device.
 
-Not ported yet: the asynchronous group allreduce and the ZeRO and resize
-helpers (ROADMAP items 1c and 1d), latency probes and egress rates
-(item 1e).
+The asynchronous group allreduce (`group_all_reduce_async`,
+`flush_async`) submits to the session's collective scheduler; a card's
+tensor is staged by a copy that runs on, and the scheduler waits for its
+event before reading it. `sharded_update_session` builds the ZeRO-1
+update. Not ported yet: the resize helpers (ROADMAP item 1d), latency
+probes and egress rates (item 1e).
 """
 
 from __future__ import annotations
@@ -155,6 +158,106 @@ def group_all_reduce_arrays(xs, op: ReduceOp = ReduceOp.SUM, name: str = "group"
     return [_back(x, *d) for x, d in zip(xs, dsts)]
 
 
+class AsyncGroupResult:
+    """Handle for one round of asynchronous group allreduce
+    (:func:`group_all_reduce_async`): ``wait()`` blocks until every
+    submitted tensor has been reduced and returns the results as tensors
+    of the inputs' shapes on the inputs' devices (the ``outs`` tensors,
+    reshaped, when given). With the scheduler off the group already ran
+    INSIDE the submitting call, and ``wait()`` just returns the results."""
+
+    def __init__(self, sess, xs, dsts, round_index=None, staged=()):
+        self._sess = sess
+        self._xs = xs
+        self._dsts = dsts  # (flat host result, pinned buffer or None) per input
+        self._staged = list(staged)  # the inputs' pinned copies, released at wait
+        self._round = round_index  # scheduler round; None = ran synchronously
+        self._done = round_index is None
+        self._results: Optional[List[torch.Tensor]] = None
+
+    def wait(self, timeout=None) -> List[torch.Tensor]:
+        if not self._done:
+            # round-aware: several handles of one round each call wait();
+            # the first flushes, the rest see the round advanced
+            self._sess.scheduler().flush_round(self._round, timeout=timeout)
+            self._done = True
+        if self._results is None:
+            _release(self._staged)
+            self._staged = []
+            self._results = [_back(x, *d) for x, d in zip(self._xs, self._dsts)]
+        return self._results
+
+
+def _stage_async(x: torch.Tensor):
+    """(flat host tensor, pinned buffer or None, ready event or None): a
+    card's tensor copied into a pinned buffer by a copy the caller does
+    not wait for; the event marks its end."""
+    host, buf = _host(x)
+    if buf is None:
+        return host, None, None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(x.device))
+    return host, buf, ev
+
+
+def group_all_reduce_async(xs, op: ReduceOp = ReduceOp.SUM, name: str = "group",
+                           outs=None) -> AsyncGroupResult:
+    """Asynchronous host-plane group allreduce: each tensor is SUBMITTED
+    to the session's collective scheduler as soon as this call sees it
+    (buckets launch while the caller keeps computing), and the returned
+    handle's ``wait()`` blocks only for the tail. Call once per tensor as
+    gradients become ready, or with the whole set.
+
+    ``(name, index)`` must be stable across steps: the first step's
+    submission order is negotiated cluster-wide as the launch order, and
+    every later step must submit the same set (in any order). Results are
+    bit-identical to :func:`group_all_reduce_arrays` on the same inputs.
+    With the scheduler off (``KF_CONFIG_ASYNC``) the group runs
+    synchronously inside this call, under per-call wire names."""
+    dsts = ([_host(x, copy=False) for x in xs] if outs is None
+            else [(o, None) for o in _group_outs(xs, outs)])
+    sess = get_default_peer().current_session()
+    if not sess.async_enabled():
+        # synchronous fallback, executed EAGERLY (callers of the
+        # submit + flush_async() pattern never touch the handle). Each
+        # call needs its OWN wire names: peers call in identical program
+        # order, so the process-local sequence agrees
+        with _async_seq_lock:
+            seq = _async_seq[0]
+            _async_seq[0] += 1
+        srcs = _stage(xs)
+        ws = [Workspace(send=s[0], recv=d[0], op=op,
+                        name=f"kungfu::user::async:{name}:{i}@{seq}")
+              for i, (s, d) in enumerate(zip(srcs, dsts))]
+        try:
+            sess.group_all_reduce(ws)
+        finally:
+            _release(srcs)
+        return AsyncGroupResult(sess, xs, dsts)
+    sched = sess.scheduler()
+    staged = []
+    for i, (x, d) in enumerate(zip(xs, dsts)):
+        host, buf, ev = _stage_async(x)
+        staged.append((host, buf))
+        sched.submit(Workspace(send=host, recv=d[0], op=op,
+                               name=f"kungfu::user::async:{name}:{i}", ready=ev))
+    return AsyncGroupResult(sess, xs, dsts, round_index=sched.round_index(), staged=staged)
+
+
+def flush_async(timeout=None) -> None:
+    """End the current async round: block until every workspace submitted
+    to the session's scheduler has completed (a no-op when the scheduler
+    is off, unused this epoch, or the round is empty). Call once per
+    training step."""
+    sess = get_default_peer().current_session()
+    if sess.async_enabled():
+        sess.scheduler().flush(timeout=timeout)
+
+
+_async_seq = [0]
+_async_seq_lock = threading.Lock()
+
+
 def _group_outs(xs, outs) -> List[torch.Tensor]:
     """Shared outs validation: contiguous CPU tensors, size- and
     dtype-matched — mismatches reach the native reduce as raw pointers,
@@ -206,6 +309,20 @@ def all_gather(shard: torch.Tensor, name: str = "user") -> torch.Tensor:
     full[b:e] = flat
     sess.all_gather_shards(full, f"kungfu::user::ag:{name}")
     return full.to(shard.device)
+
+
+def sharded_update_session(params, lr: float, momentum: float = 0.0, name: str = "zero",
+                           restore_state: Optional[bytes] = None):
+    """A :class:`~kungfu_tpu_torch.collective.zero.ShardedUpdateSession`
+    over the current session: the ZeRO-1 sharded SGD update (reduce-scatter
+    the gradients, update and hold optimizer state for only this rank's
+    1/k shard, all-gather the updated weights). `params` are contiguous
+    f32 tensors on the CPU or a card, updated in place."""
+    from kungfu_tpu_torch.collective.zero import ShardedSGD, ShardedUpdateSession
+
+    return ShardedUpdateSession(
+        params, ShardedSGD(lr, momentum=momentum), name=name,
+        session=get_default_peer().current_session(), restore_state=restore_state)
 
 
 def broadcast_array(x: torch.Tensor, root: int = 0, name: str = "user") -> torch.Tensor:

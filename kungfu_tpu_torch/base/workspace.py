@@ -9,7 +9,7 @@ slicing, so there is no separate Vector class.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
@@ -38,6 +38,10 @@ class Workspace:
     recv: torch.Tensor  # 1-D, same dtype/length as send
     op: ReduceOp
     name: str
+    # an event (a `torch.cuda.Event`) the engine synchronizes before it
+    # reads `send`: a card's tensor staged into pinned memory by a copy
+    # that may still be running (the async scheduler's hook path)
+    ready: Any = None
 
     @property
     def is_empty(self) -> bool:

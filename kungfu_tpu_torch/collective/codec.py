@@ -150,3 +150,14 @@ class WireCodec:
             log.debug("wire codec: flushing %d error-feedback residuals (%s)",
                       len(self._ef_store), reason)
         self._ef_store.clear()
+        for cb in tuple(self._ef_flush_listeners):
+            try:
+                cb(reason)
+            except Exception as e:  # noqa: BLE001 - flush must reach the rest
+                log.warn("wire codec: residual flush listener failed: %s", e)
+
+    def add_ef_flush_listener(self, cb) -> None:
+        """Register `cb(reason)` to run on every residual flush: the hook
+        ZeRO uses to reset its per-shard residuals in lockstep with the
+        session store."""
+        self._ef_flush_listeners.append(cb)

@@ -19,12 +19,13 @@ Buffers are one-dimensional contiguous torch CPU tensors (pinned where
 they stage a CUDA tensor). `wire_bytes` counts the payload bytes this
 peer sent into walks, by (collective, strategy, codec).
 
-Not ported yet: the async scheduler (`scheduler()`, ROADMAP item 1c);
-the measured-topology re-plan and demotion rounds and the
-telemetry hooks (metrics, audit, decision ledger; item 1e); the
-collective-order sentinel of KF_DEBUG_PROTOCOL. The knobs that govern
-them are still resolved and agreed between peers (`engine_knobs`), so a
-port peer and a reference peer agree on every rendezvous name.
+The async scheduler (`scheduler()`, `collective/scheduler.py`) lives
+as long as the session epoch. Not ported yet: the measured-topology
+re-plan and demotion rounds and the telemetry hooks (metrics, audit,
+decision ledger; item 1e); the collective-order sentinel of
+KF_DEBUG_PROTOCOL. The knobs that govern them are still resolved and
+agreed between peers (`engine_knobs`), so a port peer and a reference
+peer agree on every rendezvous name.
 """
 
 from __future__ import annotations
@@ -171,10 +172,16 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         # with the session on elastic resize
         self._ef_store: Dict[str, torch.Tensor] = {}
         self._ef_mode: Optional[str] = None
+        self._ef_flush_listeners: List[Callable[[str], None]] = []
         self._unknown_wire_warned: set = set()
         # monotone count of adopted precision flips: names the vote
         # workspaces and stamps the consensus digest of each switch
         self._precision_flips = 0
+        # the async collective scheduler, created on first use and closed
+        # with the epoch
+        self._scheduler = None
+        self._scheduler_lock = threading.Lock()
+        self._epoch_closed = False
         if knobs.get("KF_DEBUG_PROTOCOL") and not _protowatch_warned[0]:
             _protowatch_warned[0] = True
             log.warn("KF_DEBUG_PROTOCOL is set, but the port has no collective-order "
@@ -190,10 +197,59 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
     def size(self) -> int:
         return len(self.peers)
 
+    # ------------------------------------------------------------------
+    # async scheduler
+    # ------------------------------------------------------------------
+
+    def async_enabled(self) -> bool:
+        """Whether this epoch runs asynchronous group collectives. `auto`
+        resolves to on for multi-peer sessions. Cluster-agreed: the mode
+        decides the fused rendezvous names, so it rides the knob
+        consensus."""
+        if self.async_mode == "on":
+            return True
+        if self.async_mode == "auto":
+            return self.size >= 2
+        return False
+
+    def zero_enabled(self) -> bool:
+        """Whether this epoch runs the ZeRO-1 sharded weight update.
+        `auto` resolves to on for multi-peer sessions. Cluster-agreed like
+        KF_CONFIG_ASYNC. (The reference's memory-plane advisory when
+        `auto` resolves off is telemetry work, ROADMAP item 1e.)"""
+        if self.zero_mode == "on":
+            return True
+        if self.zero_mode == "auto":
+            return self.size >= 2
+        return False
+
+    def scheduler(self):
+        """The session's async collective scheduler, created on first
+        use. Lives exactly as long as the session epoch: `Peer._update_to`
+        calls :meth:`close` (drain) before replacing the session."""
+        from kungfu_tpu_torch.collective.scheduler import CollectiveScheduler, SchedulerClosed
+
+        with self._scheduler_lock:
+            if self._scheduler is None:
+                if self._epoch_closed:
+                    # a fresh scheduler here would walk against a fenced
+                    # transport token: the caller must re-fetch the
+                    # CURRENT session
+                    raise SchedulerClosed(
+                        "session epoch closed — fetch the current session's scheduler")
+                self._scheduler = CollectiveScheduler(self)
+            return self._scheduler
+
     def close(self, timeout: Optional[float] = None) -> None:
-        """End-of-epoch teardown. A synchronous session holds nothing in
-        flight between calls; the async scheduler that would drain here
-        is not ported yet."""
+        """End-of-epoch teardown: drain or cancel the async scheduler's
+        in-flight buckets so nothing from this epoch keeps walking (or
+        writing caller buffers) once the next session exists."""
+        with self._scheduler_lock:
+            sched = self._scheduler
+            self._scheduler = None
+            self._epoch_closed = True
+        if sched is not None:
+            sched.close(timeout=self.timeout if timeout is None else timeout)
 
     def _collected(self, kind: str, nbytes: int) -> _CollectiveScope:
         return _CollectiveScope(self, kind, nbytes)

@@ -277,6 +277,13 @@ _knob("KF_REPLAN_DEMOTE_PATIENCE", "3", _int,
       "the adopted plan's rendezvous dataflow, so every peer must apply "
       "the same patience.",
       section=_SEC_ENGINE, kind="int", strict=True, consensus=True)
+_knob("KF_CONFIG_ASYNC_QUEUE", "2", _int,
+      "Async scheduler launch-queue depth: how many packed buckets may "
+      "sit between the pack and walk stages (bounds live pooled staging "
+      "buffers; the walk itself is serialized for cross-peer launch "
+      "determinism). Local-only (not cluster-agreed — it changes no "
+      "rendezvous name, only local overlap).",
+      section=_SEC_ENGINE, kind="int")
 
 _SEC_TRANSPORT = "Transport / shared memory"
 _knob("KF_CONFIG_SHM", "1", lambda s: str(s).strip() != "0",

@@ -720,3 +720,196 @@ def test_host_all_reduce_round_trips_card_tensors_through_pinned_buffers(dtype, 
         assert got.device == xs[r].device and got.dtype == dtype and got.shape == (30, 100)
         assert torch.equal(got, want)
     assert api._pinned_pool().pin_memory and api._pinned_pool().cached_bytes() > 0
+
+
+def _frontend_worker(rank, peers, out_dir):
+    """Two host-plane peers sharing card 0, KF_CONFIG_ASYNC on: S-SGD over
+    SGD(0.1, 0.9) by the post-accumulate-grad hooks and by the step-end
+    path, then ZeRO-1 sharded and replicated, 4 steps each on per-rank
+    batches, one cluster epoch per run; the parameters after each step
+    go to `out_dir`."""
+    os.environ["KF_CONFIG_ASYNC"] = "on"
+    os.environ["KF_CONFIG_GROUP_BUCKET_BYTES"] = str(16 << 10)  # several buckets
+    os.environ["KF_CONFIG_SEGMENT_MIN_BYTES"] = "0"
+    from kungfu_tpu_torch import api
+    from kungfu_tpu_torch import torch as kf
+    from kungfu_tpu_torch.base.strategy import Strategy
+    from kungfu_tpu_torch.peer import Peer
+    from kungfu_tpu_torch.plan.peer import PeerList
+    from kungfu_tpu_torch.runner.env import WorkerConfig
+
+    pl = PeerList.parse(",".join(peers))
+    peer = Peer(WorkerConfig(self_id=pl[rank], peers=pl, runners=PeerList(), parent=None,
+                             cluster_version=0, strategy=Strategy.RING_SEGMENTED,
+                             config_server="", elastic_mode="", init_progress=0))
+    peer.start()
+    api.get_default_peer = lambda: peer
+    torch.use_deterministic_algorithms(True)
+
+    def model():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.ReLU(),
+                                   torch.nn.Linear(256, 256), torch.nn.ReLU(),
+                                   torch.nn.Linear(256, 10)).cuda()
+
+    def train(m, opt):
+        out = []
+        gen = torch.Generator(device="cuda").manual_seed(rank)
+        for _ in range(4):
+            x = torch.randn(32, 64, device="cuda", generator=gen)
+            y = torch.randn(32, 10, device="cuda", generator=gen)
+            opt.zero_grad()
+            (m(x) - y).pow(2).mean().backward()
+            opt.step()
+            out.append(torch.cat([p.detach().reshape(-1) for p in m.parameters()]).cpu())
+        return out
+
+    try:
+        res = {}
+        for run in ("hooks", "step_end", "zero_on", "zero_off"):
+            if run != "hooks":  # a fresh epoch: its scheduler registers this run's tensors
+                peer.cluster_version += 1
+                peer._update_to(pl)
+            m = model()
+            if run.startswith("zero"):
+                peer.current_session().zero_mode = run.split("_")[1]
+                opt = kf.ZeroSGDOptimizer(m, lr=0.1, momentum=0.9, name=run)
+            else:
+                opt = kf.SynchronousSGDOptimizer(
+                    torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9), name=run,
+                    async_hooks=None if run == "hooks" else False)
+            res[run] = train(m, opt)
+            res[run + ":mode"] = getattr(opt, "_mode", None) or opt._hooks_installed
+            if run == "hooks":
+                res["hooks:units"] = peer.current_session().scheduler().stats()["units"]
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        peer.stop()
+
+
+@pytest.fixture(scope="module")
+def frontend_runs(tmp_path_factory):
+    _need_card()
+    d = tmp_path_factory.mktemp("frontend")
+    _spawn(_frontend_worker, 2, "the two frontend peers", str(d))
+    return [torch.load(d / f"rank{r}.pt") for r in range(2)]
+
+
+@pytest.mark.cuda
+def test_cuda_ssgd_hook_path_equals_the_step_end_path(frontend_runs):
+    """Card gradients staged on autograd's device thread (a copy into a
+    pinned buffer, waited for by the scheduler): after every step the hook
+    path's parameters are bitwise the step-end path's, on both ranks."""
+    for res in frontend_runs:
+        assert res["hooks:mode"] is True and res["step_end:mode"] is False
+        assert res["hooks:units"] > 0
+        for a, b, c in zip(res["hooks"], res["step_end"], frontend_runs[0]["hooks"]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_zero_sgd_with_card_params_equals_replicated_sgd(frontend_runs):
+    """ZeRO-1 over the scheduler with the parameters on the card (host
+    masters and mirror, the gathered weights copied back): bitwise the
+    replicated update of the same formula, on both ranks."""
+    for res in frontend_runs:
+        assert res["zero_on:mode"] == "sharded" and res["zero_off:mode"] == "replicated"
+        for a, b, c in zip(res["zero_on"], res["zero_off"], frontend_runs[0]["zero_on"]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_async_api_and_sharded_update_session_on_card_tensors(monkeypatch):
+    """`api.group_all_reduce_async` on card tensors (staged by copies the
+    scheduler waits for) in a world of 3 in-process peers, then
+    `api.sharded_update_session` over card parameters: results back on the
+    card, equal to the synchronous group and to replicated SGD (integer
+    values: exact in any order)."""
+    _need_card()
+    monkeypatch.setenv("KF_CONFIG_ASYNC", "on")
+    from kungfu_tpu_torch import api
+    from kungfu_tpu_torch.base.strategy import Strategy
+    from kungfu_tpu_torch.peer import Peer
+    from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+    from kungfu_tpu_torch.runner.env import WorkerConfig
+
+    socks, ports = [], []
+    while len(ports) < 3:  # free ports, none in kfrun's 38000-38999
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        if not 38000 <= s.getsockname()[1] < 39000:
+            ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    pl = PeerList(PeerID("127.0.0.1", p) for p in ports)
+    world = [Peer(WorkerConfig(self_id=me, peers=pl, runners=PeerList(), parent=None,
+                               cluster_version=0, strategy=Strategy.RING_SEGMENTED,
+                               config_server="", elastic_mode="", init_progress=0))
+             for me in pl]
+    tls = threading.local()
+    monkeypatch.setattr(api, "get_default_peer", lambda: tls.peer)
+    shapes = [(30, 100), (7,), (64, 64)]
+
+    def xs(r, rnd):
+        return [((torch.arange(int(torch.tensor(s).prod()), device="cuda") * (r + 1) + rnd)
+                 % 101).float().reshape(s) for s in shapes]
+
+    outs, errs = {}, []
+
+    def run(r, fn):
+        tls.peer = world[r]
+        try:
+            outs[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    def all_threads(fn):
+        ts = [threading.Thread(target=run, args=(r, fn)) for r in range(3)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        if errs:
+            raise errs[0]
+
+    def async_rounds(r):
+        res = []
+        for rnd in range(2):
+            handles = [api.group_all_reduce_async([x], name=f"c{i}")
+                       for i, x in enumerate(xs(r, rnd))]
+            api.flush_async()
+            res.append([h.wait()[0] for h in handles])
+        return res
+
+    def sharded(r):
+        params = [torch.full((1000,), 1.0, device="cuda"), torch.full((37,), 2.0, device="cuda")]
+        zs = api.sharded_update_session(params, lr=0.5, name="card")
+        for rnd in range(2):
+            for i, p in enumerate(params):
+                zs.submit_grad(i, torch.full_like(p, float(r + rnd)))
+            zs.flush()
+            zs.wait_params()
+        return params
+
+    def next_epoch(r):  # a scheduler registers one tensor set an epoch
+        world[r].cluster_version += 1
+        world[r]._update_to(pl)
+
+    try:
+        all_threads(lambda r: world[r].start())
+        all_threads(async_rounds)
+        got = dict(outs)
+        all_threads(next_epoch)
+        all_threads(sharded)
+    finally:
+        for p in world:
+            p.stop()
+    for r in range(3):
+        for rnd in range(2):
+            for g, want in zip(got[r][rnd], [sum(xs(q, rnd)[i] for q in range(3))
+                                             for i in range(len(shapes))]):
+                assert g.device.type == "cuda" and torch.equal(g, want)
+        # mean gradient of round t: (0 + 1 + 2) / 3 + t = 1 + t
+        for p, p0 in zip(outs[r], (1.0, 2.0)):
+            assert p.device.type == "cuda" and torch.equal(p, torch.full_like(p, p0 - 0.5 - 1.0))

@@ -27,7 +27,10 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "transport.handlers", "store", "store.versioned", "runner", "runner.env",
                       "collective.codec", "collective.profiler", "collective.adaptive",
                       "collective.walks", "collective.pipeline", "collective.host_session",
-                      "peer", "api")
+                      "peer", "api",
+                      # the asynchronous host plane and the torch frontend on it
+                      "collective.scheduler", "collective.zero", "torch",
+                      "examples.bert_sma")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -77,9 +80,21 @@ def test_every_module_of_the_slice_exists():
     assert (REPO / "chip_smoke.py").is_file()
 
 
+def test_the_frontend_subpackage_leaves_resolve_device_working():
+    """Importing `kungfu_tpu_torch.torch` sets the package attribute
+    `torch`: the package's own module-level names must not be that."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import kungfu_tpu_torch, kungfu_tpu_torch.torch as f\n"
+         "assert kungfu_tpu_torch.torch is f\n"
+         "print(kungfu_tpu_torch.resolve_device('cpu'))"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "cpu"
+
+
 def _entry_points():
     from kungfu_tpu_torch import bench, graft_entry
-    from kungfu_tpu_torch.examples import bert_ssgd, mnist_slp
+    from kungfu_tpu_torch.examples import bert_sma, bert_ssgd, mnist_slp
     from kungfu_tpu_torch.monitor.noise_scale import gns_init
     from kungfu_tpu_torch.models.mlp import init_mlp
     from kungfu_tpu_torch.models.resnet import init_resnet, resnet18_thin
@@ -94,6 +109,7 @@ def _entry_points():
         "make_mesh": lambda: make_mesh(),
         "make_mesh_2d": lambda: make_mesh(shape={"dp": 1, "sp": 1}),
         "bert_ssgd.main": lambda: bert_ssgd.main(["--steps", "1", "--batch", "2"]),
+        "bert_sma.main": lambda: bert_sma.main(["--steps", "1", "--batch", "2"]),
         "init_resnet": lambda: init_resnet(resnet18_thin()),
         "init_mlp": lambda: init_mlp(),
         "mnist_slp.main": lambda: mnist_slp.main(["--epochs", "1"]),
@@ -106,7 +122,7 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_transformer",
                                   "initialize_device_plane", "make_mesh", "make_mesh_2d",
-                                  "bert_ssgd.main", "init_resnet", "init_mlp",
+                                  "bert_ssgd.main", "bert_sma.main", "init_resnet", "init_mlp",
                                   "mnist_slp.main", "bench.main", "graft_entry.entry",
                                   "dryrun_multichip", "gns_init"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):

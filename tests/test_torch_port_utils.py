@@ -89,7 +89,10 @@ def test_registry_and_doc():
         "KF_CONFIG_CHUNK_BYTES", "KF_CONFIG_SEGMENT_MIN_BYTES", "KF_CONFIG_GROUP_WINDOW",
         "KF_CONFIG_GROUP_FUSE_MIN", "KF_CONFIG_GROUP_BUCKET_BYTES", "KF_CONFIG_ASYNC",
         "KF_CONFIG_ZERO", "KF_CONFIG_REPLAN", "KF_REPLAN_DEMOTE_PATIENCE", "KF_CONFIG_SHM",
-        "KF_CONFIG_SHM_CAPACITY", "KF_CONFIG_SHM_MIN_BYTES", "KF_DEBUG_PROTOCOL"}
+        "KF_CONFIG_SHM_CAPACITY", "KF_CONFIG_SHM_MIN_BYTES", "KF_DEBUG_PROTOCOL",
+        # the async scheduler's
+        "KF_CONFIG_ASYNC_QUEUE"}
+    assert len(knobs.names()) == 33
     doc = knobs.render_doc()
     theirs = set(rknobs.render_doc().splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
