@@ -116,7 +116,23 @@ Phases, each printing one JSON line:
            and by ZeroSGD, every tensor a bucket of its own; gates: the
            three bitwise equal after every step and across ranks, ZeRO's
            state at most a quarter of the parameters plus slack; step ms
-           and the scheduler's stats, and the hooks at the default cap.
+           and the scheduler's stats, and the hooks at the default cap;
+  elastic  BASELINE config 5's resize path: the port's kfrun
+           (`python -m kungfu_tpu_torch.runner.cli -w`, a built-in config
+           server, one warm standby) starts 2 workers of this script
+           (`--elastic-worker`) on card 0: ResNet-50 at 16 images a rank of
+           a seeded synthetic set, S-SGD with momentum over the host plane
+           under ElasticState, sizes from StepBasedSchedule("2:3,4:3,2:3")
+           on rank 0 (results in `build/chip_smoke_elastic/`); gates: kfrun
+           exits 0, sizes [2,2,2,4,4,4,2,2,2], every rank's parameters,
+           running statistics and momentum equal after every step, each
+           joiner's state after the grow's sync equal to the survivors',
+           the shed workers detached and the survivors finished, each
+           step's global batch the next stretch of the dataset's order,
+           the losses finite and falling; prints each resize's phases, the
+           state sync's seconds and bytes, each joiner's spawn-to-ready ms
+           (standby or cold), the runner's Stage-to-start ms, and the step
+           ms at 2 and 4 workers.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -2291,6 +2307,295 @@ def async_phase(smi: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+ELASTIC_SCHEDULE = "2:3,4:3,2:3"  # workers: steps
+ELASTIC_SIZES = [2, 2, 2, 4, 4, 4, 2, 2, 2]
+ELASTIC_BATCH = 16  # images a rank a step, 224x224
+ELASTIC_SAMPLES = 64  # a small synthetic set the run cycles over (seed 0)
+ELASTIC_CLASSES = 10  # its labels, each with an image pattern of its own
+ELASTIC_LR, ELASTIC_MOMENTUM = 0.05, 0.9
+ELASTIC_DEADLINE_S = 500
+ELASTIC_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+
+
+def _free_range(n: int) -> int:
+    """The first of n consecutive ports that bind now, in 12000-19999
+    (outside kfrun's 38000-38999 and the device plane's 20000-29999)."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(12000, 20000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no free port range")
+
+
+def _elastic_data():
+    """ELASTIC_SAMPLES uint8 images of 224x224x3 from numpy seed 0, each a
+    noisy copy of its class's pattern, and their labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, ELASTIC_CLASSES, ELASTIC_SAMPLES)
+    patterns = rng.integers(0, 256, (ELASTIC_CLASSES, OPT_SIDE, OPT_SIDE, 3))
+    noise = rng.integers(-48, 49, (ELASTIC_SAMPLES, OPT_SIDE, OPT_SIDE, 3))
+    images = np.clip(patterns[labels] + noise, 0, 255).astype(np.uint8)
+    return images, labels.astype(np.int64)
+
+
+def elastic_worker() -> int:
+    """One worker of the elastic phase, started by the port's kfrun (cold,
+    or as an activated warm standby): ResNet-50 S-SGD with momentum over
+    the host plane under ElasticState, the sizes proposed by a
+    StepBasedSchedule on rank 0 through kfrun's config server."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from kungfu_tpu_torch import api, knobs, resolve_device
+    from kungfu_tpu_torch.elastic import ElasticDataset, ElasticState, StepBasedSchedule
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.ops.collective import defuse
+    from kungfu_tpu_torch.peer import finalize_default_peer
+    from kungfu_tpu_torch.utils import trace
+
+    spec = knobs.raw("KF_SELF_SPEC")
+    out = {"spec": spec, "standby": bool(knobs.raw("KF_ACTIVATED_TS")), "steps": []}
+    try:
+        total = sum(n * ELASTIC_BATCH * steps
+                    for n, steps in [tuple(map(int, e.split(":")))
+                                     for e in ELASTIC_SCHEDULE.split(",")])
+        es = ElasticState(max_progress=total)  # starts this worker's Peer
+        peer = es._peer
+        startup = [d for _, _, d in trace.events("worker.startup")]
+        out["startup_ms"] = startup[0] * 1e3 if startup else None
+        device = resolve_device()
+        images, labels = _elastic_data()
+        ds = ElasticDataset([images, labels], ELASTIC_BATCH, seed=1)
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = dict(model.named_parameters())
+        buffers = dict(model.named_buffers())
+        opt = torch.optim.SGD(list(params.values()), lr=ELASTIC_LR, momentum=ELASTIC_MOMENTUM)
+        for p in params.values():  # momentum leaves from the start, for the state sync
+            opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+        momentum = {k: opt.state[p]["momentum_buffer"] for k, p in params.items()}
+        step = torch.zeros(1, dtype=torch.int64)  # the schedule's step index, synced to joiners
+        state = {"params": params, "buffers": buffers, "momentum": momentum, "step": step}
+
+        @torch.no_grad()
+        def set_state(tree):
+            for part in ("params", "buffers", "momentum"):
+                for k, v in tree[part].items():
+                    state[part][k].copy_(v)
+            step.copy_(tree["step"])
+
+        def digest() -> str:
+            h = hashlib.sha256()
+            for part in ("params", "buffers", "momentum"):
+                flat = torch.cat([state[part][k].detach().reshape(-1).float()
+                                  for k in sorted(state[part])])
+                h.update(flat.cpu().numpy().tobytes())
+            h.update(step.numpy().tobytes())
+            return h.hexdigest()
+
+        sched = StepBasedSchedule(ELASTIC_SCHEDULE)
+        es.register_state(lambda: state, set_state)
+        grads = [p for p in params.values()]
+        stats = [b for b in buffers.values() if b.is_floating_point()]
+        version = None
+        while not es.stopped():
+            t_begin = time.perf_counter()
+            with es.scope():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rank, size = api.current_rank(), api.cluster_size()
+                rec = {"step": int(step), "rank": rank, "size": size, "progress": es.progress,
+                       "version": peer.cluster_version, "pre_digest": digest(),
+                       "begin_ms": (t0 - t_begin) * 1e3}
+                if peer.cluster_version != version:  # the first step of an epoch
+                    version = peer.cluster_version
+                    rec["resize_phases"] = api.last_resize_phases()
+                    rec["sync"] = dict(es.last_sync)
+                xb, yb = ds.batch_at(es.progress, rank, size)
+                rec["indices"] = ds.indices_at(es.progress, rank, size).tolist()
+                batch = (torch.from_numpy(xb).to(device).to(torch.bfloat16) / 255.0,
+                         torch.from_numpy(yb).to(device))
+                opt.zero_grad()
+                loss = resnet_loss(model, batch)
+                loss.backward()
+                # S-SGD: the gradients, the running statistics and the loss,
+                # fused and averaged over the host plane
+                fused = torch.cat([p.grad.reshape(-1) for p in grads]
+                                  + [b.reshape(-1) for b in stats] + [loss.detach().reshape(1)])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                avg = api.all_reduce_array(fused, name=f"g{int(step)}") / size
+                t2 = time.perf_counter()  # all_reduce_array returns once its copy back ended
+                parts = defuse(avg, [p.shape for p in grads] + [b.shape for b in stats] + [(1,)])
+                with torch.no_grad():
+                    for p, g in zip(grads, parts):
+                        p.grad.copy_(g)
+                    for b, v in zip(stats, parts[len(grads):]):
+                        b.copy_(v)
+                opt.step()
+                step += 1
+                torch.cuda.synchronize()
+                rec["loss"] = float(parts[-1])
+                rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+                # the step's split: forward and backward, the host all-reduce
+                # (staging both ways included), the update
+                rec["split_ms"] = [(t1 - t0) * 1e3, (t2 - t1) * 1e3, rec["step_ms"] - (t2 - t0) * 1e3]
+                rec["post_digest"] = digest()
+                rec["agreed"] = peer.current_session().bytes_consensus(
+                    rec["post_digest"].encode(), f"elastic:{rec['step']}")
+                if rank == 0:
+                    sched.maybe_propose(int(step))  # the next step's size
+                out["steps"].append(rec)
+                t_end = time.perf_counter()
+                es.end(ds.cluster_delta(size))
+                rec["end_ms"] = (time.perf_counter() - t_end) * 1e3
+        out.update(stop_reason=es.stop_reason, final_progress=es.progress)
+    finally:
+        ELASTIC_OUT.mkdir(parents=True, exist_ok=True)
+        (ELASTIC_OUT / f"{spec.replace(':', '_')}.json").write_text(json.dumps(out))
+        finalize_default_peer()
+    return 0
+
+
+def elastic_phase(smi: str) -> None:
+    """BASELINE config 5's resize path on one card: the port's kfrun in
+    watch mode with one warm standby starts 2 workers; a StepBasedSchedule
+    grows the world to 4 and shrinks it back to 2 while ResNet-50 trains
+    under ElasticState."""
+    t_phase = time.perf_counter()
+    ELASTIC_OUT.mkdir(parents=True, exist_ok=True)
+    for f in ELASTIC_OUT.glob("*"):
+        f.unlink()
+    base, runner = _free_range(4), _free_ports(1)[0]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KF_")}
+    here = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "kungfu_tpu_torch.runner.cli", "-np", "2", "-H", "127.0.0.1:4",
+           "-w", "-builtin-config-port", "0", "-port-range", f"{base}-{base + 3}",
+           "-runner-port", str(runner), "-monitor-port", "0", "-warm-spares", "1",
+           "-timeout", str(ELASTIC_DEADLINE_S), sys.executable, "chip_smoke.py",
+           "--elastic-worker"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
+                       timeout=ELASTIC_DEADLINE_S + 60)
+    kfrun_s = time.perf_counter() - t0
+    (ELASTIC_OUT / "kfrun.log").write_text(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    check(r.returncode == 0, f"elastic: kfrun exited {r.returncode}; its log is "
+          f"{ELASTIC_OUT / 'kfrun.log'}:\n{r.stderr[-3000:]}")
+    workers = {}
+    for f in sorted(ELASTIC_OUT.glob("*.json")):
+        w = json.loads(f.read_text())
+        workers[w["spec"]] = w
+    specs = [f"127.0.0.1:{base + i}" for i in range(4)]
+    check(sorted(workers) == specs, f"elastic: workers {sorted(workers)}, not {specs}")
+    first, joiners = specs[:2], specs[2:]
+    steps = {}  # step -> records of every rank
+    for w in workers.values():
+        for rec in w["steps"]:
+            steps.setdefault(rec["step"], []).append(rec)
+    sizes = [steps[i][0]["size"] for i in sorted(steps)]
+    check(sizes == ELASTIC_SIZES, f"elastic: sizes per step {sizes}, not {ELASTIC_SIZES}")
+    for i, recs in sorted(steps.items()):
+        check(sorted(r["rank"] for r in recs) == list(range(sizes[i]))
+              and len({r["size"] for r in recs}) == 1, f"elastic step {i}: ranks {recs}")
+        check(all(r["agreed"] for r in recs) and len({r["post_digest"] for r in recs}) == 1,
+              f"elastic step {i}: the ranks' parameters, buffers or momentum differ")
+        check(len({r["pre_digest"] for r in recs}) == 1,
+              f"elastic step {i}: the ranks started the step from different states")
+        if i:
+            check(recs[0]["pre_digest"] == steps[i - 1][0]["post_digest"],
+                  f"elastic step {i}: the state changed between steps")
+    grow = ELASTIC_SIZES.index(4)
+    for j in joiners:
+        got = workers[j]["steps"][0]
+        check(got["step"] == grow and got["pre_digest"] == steps[grow - 1][0]["post_digest"],
+              f"elastic: joiner {j} did not start from the survivors' state")
+        check(workers[j]["stop_reason"] == "detached", f"elastic: joiner {j} stopped "
+              f"{workers[j]['stop_reason']!r}, not 'detached'")
+    total = sum(s * ELASTIC_BATCH for s in ELASTIC_SIZES)
+    for s in first:
+        check(workers[s]["stop_reason"] == "finished" and workers[s]["final_progress"] == total,
+              f"elastic: survivor {s} stopped {workers[s]['stop_reason']!r} at "
+              f"{workers[s]['final_progress']}")
+    # no sample skipped or trained twice: each step's global batch is the
+    # next stretch of the dataset's order
+    import numpy as np
+
+    from kungfu_tpu_torch.elastic import ElasticDataset
+
+    order = ElasticDataset([np.zeros(ELASTIC_SAMPLES)], ELASTIC_BATCH, seed=1)
+    progress = 0
+    for i in sorted(steps):
+        recs = sorted(steps[i], key=lambda r: r["rank"])
+        check(all(r["progress"] == progress for r in recs),
+              f"elastic step {i}: progress {[r['progress'] for r in recs]}, not {progress}")
+        got = [x for r in recs for x in r["indices"]]
+        want = [int(order._epoch_perm(p // ELASTIC_SAMPLES)[p % ELASTIC_SAMPLES])
+                for p in range(progress, progress + len(got))]
+        check(got == want, f"elastic step {i}: the global batch is not the next in order")
+        progress += ELASTIC_BATCH * sizes[i]
+    losses = [steps[i][0]["loss"] for i in sorted(steps)]
+    check(all(math.isfinite(x) for x in losses), f"elastic: losses {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"elastic: the loss did not fall: {losses}")
+
+    # what each resize cost
+    resizes = []
+    for i in sorted(steps):
+        recs = steps[i]
+        if i == 0 or sizes[i] != sizes[i - 1]:
+            resizes.append({
+                "step": i, "from": sizes[i - 1] if i else 0, "to": sizes[i],
+                "resize_phases": {r["rank"]: r.get("resize_phases") for r in recs},
+                "sync_s": {r["rank"]: r.get("sync", {}).get("seconds") for r in recs},
+                "sync_bytes": {r["rank"]: r.get("sync", {}).get("bytes") for r in recs},
+                # the es.end() that resized, as each rank of the step before saw it
+                "end_ms_before": {r["rank"]: r["end_ms"] for r in steps[i - 1]} if i else {},
+            })
+    joins = {j: {"how": "standby" if workers[j]["standby"] else "cold",
+                 "spawn_to_ready_ms": workers[j]["startup_ms"]} for j in joiners}
+    runner_ms = [line.split("kfrun: ", 1)[1] for line in (r.stdout + r.stderr).splitlines()
+                 if "after its Stage" in line]
+    check(any(v["how"] == "standby" for v in joins.values()),
+          f"elastic: no joiner came from the warm standby: {joins}")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2] if xs else None
+
+    by_size = {}
+    for i in sorted(steps):
+        first_of_epoch = i == 0 or sizes[i] != sizes[i - 1]
+        if not first_of_epoch:
+            by_size.setdefault(sizes[i], []).append(max(r["step_ms"] for r in steps[i]))
+    emit("elastic", nvidia_smi=smi, schedule=ELASTIC_SCHEDULE, sizes=sizes,
+         images_per_rank=ELASTIC_BATCH, samples=ELASTIC_SAMPLES, losses=losses,
+         resizes=resizes, joins=joins, runner_stage_to_start=runner_ms,
+         step_ms={n: [[r["step_ms"] for r in sorted(steps[i], key=lambda r: r["rank"])]
+                      for i in sorted(steps) if sizes[i] == n] for n in sorted(set(sizes))},
+         median_step_ms={n: med(v) for n, v in by_size.items()},
+         split_ms={n: [[[round(x, 2) for x in r["split_ms"]]
+                        for r in sorted(steps[i], key=lambda r: r["rank"])]
+                       for i in sorted(steps) if sizes[i] == n] for n in sorted(set(sizes))},
+         end_ms=[[r.get("end_ms") for r in sorted(steps[i], key=lambda r: r["rank"])]
+                 for i in sorted(steps)],
+         kfrun_seconds=kfrun_s, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2327,6 +2632,7 @@ def main() -> int:
     hostnet_phase(smi, host["walks"])
     sma_launches = sma_phase(smi)
     async_phase(smi)
+    elastic_phase(smi)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():
@@ -2358,4 +2664,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(elastic_worker() if "--elastic-worker" in sys.argv[1:] else main())

@@ -13,8 +13,9 @@ The asynchronous group allreduce (`group_all_reduce_async`,
 `flush_async`) submits to the session's collective scheduler; a card's
 tensor is staged by a copy that runs on, and the scheduler waits for its
 event before reading it. `sharded_update_session` builds the ZeRO-1
-update. Not ported yet: the resize helpers (ROADMAP item 1d), latency
-probes and egress rates (item 1e).
+update. `resize`, `propose_new_size`, `change_cluster` and
+`last_resize_phases` drive and time the elastic resize protocol of
+`Peer`. Not ported yet: latency probes and egress rates (ROADMAP item 1e).
 """
 
 from __future__ import annotations
@@ -365,6 +366,33 @@ def all_reduce_int_max(x: int) -> int:
 
 def consensus(data: bytes, name: str = "user") -> bool:
     return get_default_peer().current_session().bytes_consensus(data, name)
+
+
+def resize(new_size: Optional[int] = None):
+    """Resize the cluster; returns (changed, detached).
+
+    With new_size=None, pulls the desired cluster from the config server
+    (parity: resize_cluster_from_url); otherwise grows/shrinks to new_size.
+    """
+    p = get_default_peer()
+    if new_size is None:
+        return p.resize_cluster_from_url()
+    return p.resize_cluster(new_size)
+
+
+def propose_new_size(new_size: int) -> None:
+    get_default_peer().propose_new_size(new_size)
+
+
+def last_resize_phases() -> dict:
+    """Per-phase ms breakdown of the most recent resize seen by this peer
+    (wait_config / consensus / notify / update)."""
+    return dict(get_default_peer().last_resize_phases)
+
+
+def change_cluster(progress: int):
+    """Reload-mode resize; returns (changed, detached_all)."""
+    return get_default_peer().change_cluster(progress)
 
 
 def minimum_spanning_tree(weights) -> list:

@@ -119,8 +119,9 @@ def _choice(name: str, choices, *, empty_as: Optional[str] = None):
 
 # --- declarations ------------------------------------------------------
 # The reference's names, defaults, parsers and doc strings, for the knobs
-# the port reads: the worker contract the runner sets, the log level, the
-# stall detector's switch, and the collective engine's and transport's.
+# the port reads: the worker contract the runner sets, the elastic and
+# monitored runners' and the standby pool's, the log level, the stall
+# detector's switch, and the collective engine's and transport's.
 
 _SEC_CONTRACT = "Worker contract (set by the runner)"
 _knob("KF_SELF_SPEC", "", _str,
@@ -159,6 +160,9 @@ _knob("KF_SPAWN_TS", "", _str,
       "Unix timestamp the runner spawned this worker at; start() reports "
       "spawn→ready latency from it.",
       section=_SEC_CONTRACT, kind="float-ts")
+_knob("KF_RUNNER_PID", "0", _int,
+      "PID of the supervising runner (standby activation checks it).",
+      section=_SEC_CONTRACT, kind="int")
 
 _SEC_ELASTIC = "Elastic / adaptation"
 _knob("KF_CONFIG_SERVER", "", _str,
@@ -169,10 +173,32 @@ _knob("KF_ELASTIC_MODE", "", _str,
       "Resize style: empty (delta resize in-process) or `reload` "
       "(workers restart on membership change).",
       section=_SEC_ELASTIC, kind="str")
+_knob("KF_RECOVER_EPOCH", "", _str,
+      "Set by the monitored runner on relaunch: the minimum completed "
+      "epoch; checkpoint restore caps at it.",
+      section=_SEC_ELASTIC, kind="int")
+_knob("KF_MONITOR_ADDR", "", _str,
+      "Where `send_heartbeat` POSTs worker heartbeats "
+      "(set by the monitored runner).",
+      section=_SEC_ELASTIC, kind="host:port")
 _knob("KF_CONFIG_ENABLE_STALL_DETECTION", "", _bool,
       "Truthy spelling logs collectives that exceed their deadline "
       "repeatedly until they complete.",
       section=_SEC_ELASTIC, kind="bool")
+
+_SEC_STANDBY = "Standby pool"
+_knob("KF_STANDBY_FIFO", "", _str,
+      "Path of the activation FIFO a standby worker blocks on "
+      "(`kf-standby` refuses to run without it).",
+      section=_SEC_STANDBY, kind="path")
+_knob("KF_STANDBY_PRELOAD", "", _csv,
+      "Extra modules a standby imports before parking, so activation "
+      "skips their import cost.",
+      section=_SEC_STANDBY, kind="csv")
+_knob("KF_ACTIVATED_TS", "", _str,
+      "Monotonic timestamp stamped by the standby pool at activation "
+      "(activation-latency accounting).",
+      section=_SEC_STANDBY, kind="float-ts")
 
 # the collective engine's knobs: every `consensus` one decides rendezvous
 # names, message sizes or peer pairings, and HostSession.engine_knobs()

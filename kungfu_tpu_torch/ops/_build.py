@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
 compiled for Hopper (`sm_90a`) at first use into `build/kungfu_tpu_torch/`
 beside the package. The host plane's C++ (`csrc/host/*.cpp`) becomes one
 more, compiled by the host C++ compiler for the machine it runs on
-(`compile_host_library`). A library's file name carries a hash of its
+(`compile_host_library`), and the runner's exec shim `csrc/host/pdeathsig.c`
+one executable (`compile_pdeathsig`). A library's file name carries a hash of its
 sources and flags (for the host library also of the compiler's target),
 so an edited source is rebuilt and a stale library is never loaded. There
 is no fallback: without nvcc a CUDA tensor cannot be served, without a
@@ -143,6 +144,27 @@ def compile_host_library(cxx: Optional[str] = None) -> Path:
     sources = [str(s) for s in sorted(HOST_CSRC.glob("*.cpp"))]
     return _compile(host_library_path(cxx), [cxx, *HOST_FLAGS, "-o", "{tmp}", *sources],
                     "the host library")
+
+
+PDEATHSIG_SOURCE = HOST_CSRC / "pdeathsig.c"
+PDEATHSIG_FLAGS = ["-x", "c", "-O2"]
+
+
+def pdeathsig_path(cxx: str) -> Path:
+    h = hashlib.sha256(" ".join(PDEATHSIG_FLAGS).encode())
+    h.update(_host_target(cxx))
+    h.update(PDEATHSIG_SOURCE.read_bytes())
+    return BUILD_DIR / f"kf-pdeathsig-{h.hexdigest()[:16]}"
+
+
+def compile_pdeathsig(cxx: Optional[str] = None) -> Path:
+    """Compile the runner's orphan-protection exec shim
+    (csrc/host/pdeathsig.c, compiled as C by the host compiler) unless the
+    executable for this source and machine exists."""
+    cxx = cxx or find_cxx()
+    return _compile(pdeathsig_path(cxx),
+                    [cxx, *PDEATHSIG_FLAGS, "-o", "{tmp}", str(PDEATHSIG_SOURCE)],
+                    "the kf-pdeathsig shim")
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:

@@ -6,20 +6,30 @@ server and client, the current cluster (versioned), and the HostSession of
 that version. The device plane (`parallel/distributed.py`) forms its
 `torch.distributed` world over this session.
 
-Not ported yet: the elastic-resize protocol (propose, notify runners,
-bump version; ROADMAP item 1d) and the telemetry server and flight
-recorder (item 1e). A new epoch is built by `_update_to` at a new
-`cluster_version`, as the resize protocol would.
+The elastic-resize protocol (parity: peer.go propose/ResizeCluster*):
+peers agree on a proposed cluster by a bytes consensus, rank 0 sends the
+new Stage to every runner (the reference's JSON, byte for byte, so either
+package's runner drives either's workers), every peer bumps the cluster
+version, and `_update_to` builds the next epoch's session. A joiner
+starts at that version from the runner's environment; a peer left out
+detaches. `last_resize_phases` times the phases of the latest resize.
+
+Not ported yet (ROADMAP item 1e): the telemetry server, the flight
+recorder, the host-role election, and the audit and decision records a
+resize writes in the reference.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
-from typing import Optional
+import urllib.request
+from typing import Optional, Tuple
 
 from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.collective.host_session import HostSession
+from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.plan.peer import PeerList
 from kungfu_tpu_torch.runner import env as kfenv
 from kungfu_tpu_torch.store.versioned import BlobStore
@@ -29,6 +39,7 @@ from kungfu_tpu_torch.transport.handlers import CollectiveEndpoint, P2PEndpoint,
 from kungfu_tpu_torch.transport.message import ConnType
 from kungfu_tpu_torch.transport.server import Server
 from kungfu_tpu_torch.utils import trace
+from kungfu_tpu_torch.utils.stall import stall_detect
 
 _default_peer: Optional["Peer"] = None
 _default_lock = threading.Lock()
@@ -72,8 +83,18 @@ class Peer:
         self._peers = config.peers
         self._session: Optional[HostSession] = None
         self._session_lock = threading.RLock()
-        # cluster epochs this PROCESS has lived through: 1 after start
+        # cluster epochs this PROCESS has lived through: 1 after start,
+        # >1 once it survives a delta resize (ElasticState's root vote)
         self.epoch_count = 0
+        # per-phase wall-clock (ms) of the most recent resize, as seen by
+        # this peer: wait_config / consensus / notify / update (update =
+        # reconnect + new-session barrier, i.e. joiner-bounded)
+        self.last_resize_phases: dict = {}
+        # config-poll/reload consensus rounds run, PER cluster version:
+        # every member of a session epoch runs them in lockstep, so the
+        # (version, rounds-this-version) pair agrees cluster-wide where a
+        # process-lifetime counter would diverge for joiners
+        self._cfg_consensus_seq: dict = {}
 
         self.store = BlobStore()
         self.client = Client(self.self_id, use_unix=not config.single_process)
@@ -159,3 +180,168 @@ class Peer:
         (parity: SetTree, adaptation.cpp:5-33). The father array indexes
         this epoch's rank space, so it does not survive a resize."""
         self.current_session().set_tree([int(f) for f in fathers])
+
+    # ------------------------------------------------------------------
+    # elastic resize protocol (parity: peer.go propose/ResizeCluster*)
+    # ------------------------------------------------------------------
+
+    def _notify_runners(self, stage: dict) -> None:
+        """Send the new Stage to every runner (parity: peer.go:200-214)."""
+        payload = json.dumps(stage).encode()
+        log.debug("notifying %d runners: v%s", len(self.config.runners), stage.get("Version"))
+        for runner in self.config.runners:
+            if not self.client.wait_peer(runner, timeout=30):
+                raise ConnectionError(f"runner {runner} unreachable")
+            self.client.send(runner, "update", payload, ConnType.CONTROL)
+            log.debug("notified runner %s", runner)
+
+    def _propose(self, cluster: Cluster, progress: int = 0, trigger: str = "explicit",
+                 pre_phases: Optional[dict] = None) -> Tuple[bool, bool]:
+        """Consensus-check and adopt a new cluster.
+
+        Returns (accepted, keep): keep=False means self is detached.
+        Parity: peer.propose (peer.go:181-233) including the safety check —
+        peers must agree on the proposed bytes or the resize is rejected.
+        `pre_phases` (the config-server wait) joins the phase times.
+        """
+        sess = self.current_session()
+        t0 = time.perf_counter()
+        with trace.span("resize.consensus"):
+            agreed = sess.bytes_consensus(cluster.to_bytes(), f":propose:v{self.cluster_version}")
+        if not agreed:
+            return False, True
+        if self._peers == cluster.workers:
+            return True, True  # no change
+        old_peers = self._peers
+        self.last_resize_phases = dict(pre_phases or {})
+        self.last_resize_phases["consensus_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        stage = {
+            "Version": self.cluster_version + 1,
+            "Progress": progress,
+            "Cluster": cluster.to_json(),
+        }
+        if sess.rank == 0 and self.config.runners:
+            t1 = time.perf_counter()
+            with trace.span("resize.notify"):
+                self._notify_runners(stage)
+            self.last_resize_phases["notify_ms"] = round((time.perf_counter() - t1) * 1e3, 1)
+        # all peers advance the version together (they all ran the consensus)
+        self.cluster_version += 1
+        t2 = time.perf_counter()
+        with trace.span("resize.update"):
+            keep = self._update_to(cluster.workers)
+        self.last_resize_phases["update_ms"] = round((time.perf_counter() - t2) * 1e3, 1)
+        log.info("resize v%d: %d -> %d workers (%s)%s", self.cluster_version, len(old_peers),
+                 len(cluster.workers), trigger, "" if keep else " [detached]")
+        return True, keep
+
+    def _get_config(self, url: str, attempts: int = 3) -> Optional[Cluster]:
+        """GET the desired cluster; a few retries absorb transient server
+        blips so a published resize isn't silently dropped by the
+        current-cluster fallback in _wait_new_config."""
+        for i in range(attempts):
+            try:
+                with urllib.request.urlopen(url, timeout=5) as resp:
+                    return Cluster.loads(resp.read().decode())
+            except Exception as e:  # noqa: BLE001 - any failure falls back below
+                if i + 1 < attempts:
+                    time.sleep(0.3)
+                else:
+                    log.warn("config server unreachable after %d tries (%s): %s",
+                             attempts, url, e)
+        return None
+
+    def _wait_new_config(self, url: str) -> Cluster:
+        """Poll the config server until all current peers see the same
+        cluster (parity: waitNewConfig, peer.go:242-263). When the server is
+        unreachable or has no config, each peer falls back to its CURRENT
+        cluster (the reference's "using current config" path) — once all
+        peers agree (e.g. the server is down for everyone) the resize
+        degrades to a no-op instead of hanging the training loop."""
+        sess = self.current_session()
+        current = Cluster(runners=self.config.runners, workers=self._peers)
+        # each poll round gets its own rendezvous name: a slow peer's round
+        # r must never consume the lanes of a fast peer's round r+1
+        while True:
+            cluster = self._get_config(url) or current
+            with stall_detect(f"wait_new_config({url})"):
+                if sess.bytes_consensus(cluster.to_bytes(), self._cfg_consensus_name("cfg")):
+                    return cluster
+            time.sleep(0.2)
+
+    def _cfg_consensus_name(self, kind: str) -> str:
+        """Round-stamped rendezvous name for the config-plane consensus
+        lanes: `:{kind}:v{version}:{seq}` with seq the count of such
+        rounds THIS session epoch has run (all epoch members run them in
+        lockstep, so the stamp agrees cluster-wide; a joiner starts the
+        new epoch at 0 together with everyone else)."""
+        v = self.cluster_version
+        seq = self._cfg_consensus_seq.get(v, 0)
+        self._cfg_consensus_seq[v] = seq + 1
+        return f":{kind}:v{v}:{seq}"
+
+    def resize_cluster_from_url(self) -> Tuple[bool, bool]:
+        """(changed, detached). Parity: ResizeClusterFromURL (peer.go:265)."""
+        url = self.config.config_server
+        if not url:
+            return False, False
+        t0 = time.perf_counter()
+        with trace.span("resize.wait_config"):
+            cluster = self._wait_new_config(url)
+        wait_ms = round((time.perf_counter() - t0) * 1e3, 1)
+        if cluster.workers == self._peers:
+            return False, False
+        # pre_phases rides into _propose so a REJECTED proposal never
+        # splices this wait into the previous resize's phase breakdown
+        accepted, keep = self._propose(cluster, trigger="config_server",
+                                       pre_phases={"wait_config_ms": wait_ms})
+        return accepted, not keep
+
+    def resize_cluster(self, new_size: int) -> Tuple[bool, bool]:
+        """Explicit resize to new_size workers (parity: ResizeCluster)."""
+        current = Cluster(runners=self.config.runners, workers=self._peers)
+        cluster = current.resize(new_size)
+        if cluster.workers == self._peers:
+            return False, False
+        accepted, keep = self._propose(cluster, trigger="explicit")
+        return accepted, not keep
+
+    def propose_new_size(self, new_size: int) -> None:
+        """Publish a desired size to the config server (rank-agnostic;
+        parity: ProposeNewSize -> config-server PUT)."""
+        url = self.config.config_server
+        if not url:
+            raise RuntimeError("no config server configured")
+        current = Cluster(runners=self.config.runners, workers=self._peers)
+        cluster = current.resize(new_size)
+        req = urllib.request.Request(url, data=cluster.dumps().encode(), method="PUT")
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            resp.read()
+
+    def change_cluster(self, progress: int) -> Tuple[bool, bool]:
+        """Reload-mode resize: every worker exits and the runners relaunch
+        from `progress` (parity: ChangeCluster, peer.go:279-291 +
+        ElasticModeReload). Returns (changed, detached_all)."""
+        url = self.config.config_server
+        if not url:
+            return False, False
+        cluster = self._wait_new_config(url)
+        if cluster.workers == self._peers:
+            return False, False
+        sess = self.current_session()
+        # epoch-sequenced: a reload agreement must not rendezvous with an
+        # earlier attempt's lanes (repeat calls at one version) nor with
+        # another epoch's
+        if not sess.bytes_consensus(cluster.to_bytes(), self._cfg_consensus_name("reload")):
+            return False, False
+        stage = {
+            "Version": self.cluster_version + 1,
+            "Progress": progress,
+            "Cluster": cluster.to_json(),
+            "Reload": True,
+        }
+        if sess.rank == 0 and self.config.runners:
+            self._notify_runners(stage)
+        # in reload mode every worker detaches; runners restart the world
+        self.detached = True
+        return True, True

@@ -1,0 +1,544 @@
+"""Elastic watcher: runner-side supervisor for membership changes.
+
+Port of `kungfu_tpu/runner/watch.py` (parity: srcs/go/kungfu/runner/
+watch.go:24-171 + handler.go): the runner hosts a control endpoint;
+workers send Stage{Version, Progress, Cluster} updates during a resize.
+The watcher diffs the local worker set: waits removed procs, spawns added
+ones (delta mode), or restarts everything from the carried progress
+(reload mode). Duplicate versions are deduped; inconsistent duplicates
+abort (handler.go:90-103 safety check). Joiners come from warm standbys
+where one is ready, from a cold spawn otherwise; card slots come from one
+pool across resizes; `-auto-recover` composes the heartbeat monitor in.
+
+Not ported yet (ROADMAP item 1e): the telemetry aggregator behind
+`-debug-port`'s `/cluster/*` routes, the flight-recorder postmortems of
+dead workers (the watcher logs their exit codes and output tails
+instead) and the audit records. Unlike the reference's watcher, this one
+honours `-timeout`: past it, every worker is killed and kfrun exits 1.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+
+from kungfu_tpu_torch.plan.cluster import Cluster
+from kungfu_tpu_torch.plan.peer import PeerID, PeerList
+from kungfu_tpu_torch.runner.proc import WorkerProc
+from kungfu_tpu_torch.telemetry import log
+from kungfu_tpu_torch.transport.message import ConnType, Message
+from kungfu_tpu_torch.transport.server import Server
+
+# lines of a dead worker's output the watcher logs
+TAIL_LINES = 20
+
+
+class Stage:
+    def __init__(self, version: int, progress: int, cluster: Cluster, reload: bool = False):
+        self.version = version
+        self.progress = progress
+        self.cluster = cluster
+        self.reload = reload
+        self.received: Optional[float] = None  # monotonic arrival at this runner
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "Stage":
+        return cls(
+            version=int(obj["Version"]),
+            progress=int(obj.get("Progress", 0)),
+            cluster=Cluster.from_json(obj["Cluster"]),
+            reload=bool(obj.get("Reload", False)),
+        )
+
+    def to_json(self) -> dict:
+        """The Stage as workers send it (`peer.py`): Version, Progress,
+        Cluster, and Reload only when set."""
+        obj = {"Version": self.version, "Progress": self.progress,
+               "Cluster": self.cluster.to_json()}
+        if self.reload:
+            obj["Reload"] = True
+        return obj
+
+    def digest(self) -> bytes:
+        return self.cluster.digest() + str(self.version).encode()
+
+
+class DebugServer:
+    """HTTP endpoint on the runner: the Stage and worker dump (parity:
+    -debug-port, runner/handler.go:118-124) on every path."""
+
+    def __init__(self, watcher: "Watcher", port: int):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(inner):
+                body = json.dumps(watcher.debug_dump(), indent=2).encode()
+                inner.send_response(200)
+                inner.send_header("Content-Type", "application/json")
+                inner.send_header("Content-Length", str(len(body)))
+                inner.end_headers()
+                inner.wfile.write(body)
+
+        self.httpd = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+        self.port = self.httpd.server_address[1]
+
+    def start(self):
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def stop(self):
+        self.httpd.shutdown()
+
+
+class Watcher:
+    REFILL_DELAY = 3.0  # seconds after an activation before warming a spare
+
+    def __init__(self, args, cmd, self_host: str, strategy, config_server_url: str):
+        self.args = args
+        self.cmd = cmd
+        self.self_host = self_host
+        self.strategy = strategy
+        self.config_server_url = config_server_url
+        self.stage_q: "queue.Queue[Stage]" = queue.Queue()
+        self.current: Dict[PeerID, WorkerProc] = {}
+        self.seen_versions: Dict[int, bytes] = {}
+        # [-debug-port] one entry per Stage; bounded so a long elastic run
+        # without a debug reader doesn't grow a buffer forever
+        self.stage_log: "collections.deque" = collections.deque(maxlen=512)
+        self.done = threading.Event()
+        self.exit_code = 0
+        self._gone: List[WorkerProc] = []
+        # guards current/stage_log: mutated on the watcher + control
+        # threads, read by -debug-port HTTP handler threads
+        self._state_lock = threading.Lock()
+        # device-slot pool (parity: job/gpu_resource.go): joiners draw from
+        # it, leavers return to it, so workers sharing this host never open
+        # the same cards across resizes. Share size is fixed by the host's
+        # slot CAPACITY (not current np) so surviving workers — whose env
+        # cannot change — keep valid stripes as the cluster grows.
+        self.slot_pool = None
+        self.chips_per_worker = 0
+        self._worker_slots: Dict[PeerID, list] = {}
+        n_dev = getattr(args, "devices_per_host", 0)
+        if n_dev > 0:
+            from kungfu_tpu_torch.runner.slots import SlotPool
+
+            cap = max(1, getattr(args, "host_capacity", 0))
+            self.chips_per_worker = max(1, n_dev // cap)
+            self.slot_pool = SlotPool.of_size(n_dev)
+        # warm spares: pre-imported standby processes that turn elastic-join
+        # spawn+import (seconds of CPU) into a FIFO write
+        self.standby_pool = None
+        n_spares = getattr(args, "warm_spares", 0)
+        if n_spares > 0:
+            from kungfu_tpu_torch.runner.standby import StandbyPool, resolve_preload
+
+            self.standby_pool = StandbyPool(
+                n_spares,
+                logdir=getattr(args, "logdir", ""),
+                quiet=getattr(args, "quiet", False),
+                preload=resolve_preload(getattr(args, "standby_preload", "")),
+            )
+            self.standby_pool.refill()
+        self._initial_done = False
+        self._refill_at: Optional[float] = None
+        # -w + -auto-recover composition: a worker that DIES (nonzero exit
+        # without a Stage removing it) triggers a reload at a shrunk
+        # cluster instead of stranding the survivors in blocked
+        # collectives (parity goal: monitored.go generalized to elastic
+        # membership)
+        self.auto_recover = bool(getattr(args, "auto_recover", ""))
+        self.failure_restarts = 0
+        self.last_stage: Optional[Stage] = None
+        self._reported: set = set()  # (peer, pid) of dead workers logged
+        self.hb_state = None
+        self.monitor = None
+        self.grace = 0.0
+        if self.auto_recover:
+            # the monitored-mode heartbeat server, composed into the
+            # elastic watcher: workers report begin/end/epoch so recovery
+            # carries REAL progress and hung (not just dead) workers are
+            # detected by the same grace rule
+            from kungfu_tpu_torch.runner.monitored import (
+                HeartbeatState,
+                MonitorServer,
+                parse_duration,
+            )
+
+            self.hb_state = HeartbeatState()
+            self.monitor = MonitorServer(self.hb_state, port=0)
+            self.monitor.start()
+            self.grace = parse_duration(args.auto_recover)
+
+    def debug_dump(self) -> dict:
+        # runs on HTTP handler threads: snapshot under the state lock so a
+        # concurrent apply_delta/record_stage can't mutate mid-iteration
+        with self._state_lock:
+            workers = dict(self.current)
+            stages = list(self.stage_log)
+        return {
+            "self": self.self_host,
+            "stages": stages,
+            "workers": {
+                str(w): ("running" if p.running else f"exit:{p.proc.returncode}")
+                for w, p in workers.items()
+            },
+        }
+
+    def record_stage(self, stage: Stage) -> None:
+        entry = {
+            "version": stage.version,
+            "progress": stage.progress,
+            "reload": stage.reload,
+            "workers": [str(w) for w in stage.cluster.workers],
+            "digest": stage.digest().hex(),
+        }
+        with self._state_lock:
+            self.stage_log.append(entry)
+
+    # -- control endpoint ----------------------------------------------
+    def handle_control(self, src: PeerID, msg: Message) -> None:
+        if msg.name == "exit":
+            self.done.set()
+            return
+        if msg.name != "update":
+            return
+        stage = Stage.from_json(json.loads(bytes(msg.data).decode()))
+        digest = stage.digest()
+        if stage.version in self.seen_versions:
+            if self.seen_versions[stage.version] != digest:
+                # diverged proposals for the same version: unrecoverable
+                log.error("kfrun: inconsistent cluster for version %s; aborting",
+                          stage.version)
+                self.exit_code = 1
+                self.done.set()
+            return
+        self.seen_versions[stage.version] = digest
+        stage.received = time.monotonic()
+        self.record_stage(stage)
+        self.stage_q.put(stage)
+
+    # -- proc management -----------------------------------------------
+    def _spawn(self, w: PeerID, stage: Stage) -> None:
+        from kungfu_tpu_torch.runner.cli import make_one_worker_proc
+
+        t_spawn0 = time.monotonic()
+        slots = None
+        if self.slot_pool is not None:
+            try:
+                slots = self.slot_pool.get(self.chips_per_worker)
+                self._worker_slots[w] = slots
+            except RuntimeError as e:
+                # a growing host exceeding its card budget must not crash
+                # the runner mid-resize: spawn unpinned and say so (the
+                # upfront cli check makes this unreachable for valid plans)
+                log.warn("kfrun: %s; spawning %s unpinned", e, w)
+                slots = None
+        p = make_one_worker_proc(
+            self.args, self.cmd, stage.cluster, w, self.self_host, self.strategy,
+            self.config_server_url, version=stage.version, progress=stage.progress,
+            device_slots=slots,
+        )
+        if self.monitor is not None:
+            from kungfu_tpu_torch.runner.monitored import MONITOR_ADDR_ENV
+
+            p.env[MONITOR_ADDR_ENV] = f"{self.self_host}:{self.monitor.port}"
+        # standbys serve post-initial joins only (at t0 a cold spawn is
+        # concurrent with everything else anyway, and the just-spawned
+        # standbys may not have opened their FIFOs yet)
+        if self.standby_pool is not None and self._initial_done:
+            # refill DEFERRED in every branch (success, dead slot, empty
+            # pool): a replacement standby's imports would compete with
+            # the joiner for CPU during the rebuild barrier — and a branch
+            # without a refill would drain the pool permanently
+            self._refill_at = time.monotonic() + self.REFILL_DELAY
+            slot = self.standby_pool.take()
+            if slot is not None:
+                t_act0 = time.monotonic()
+                if slot.activate(p.env, p.argv, p.name, p.rank):
+                    log.info("kfrun: warm standby activated as %s (prep %.1f ms, activate %.1f ms)",
+                             p.name, (t_act0 - t_spawn0) * 1e3,
+                             (time.monotonic() - t_act0) * 1e3)
+                    self._log_start(w, stage, "standby")
+                    with self._state_lock:
+                        self.current[w] = slot.proc
+                    return
+                # unreachable fifo: the standby is dead or wedged — never
+                # reusable, don't leak it
+                log.warn("kfrun: standby unreachable; cold spawning %s", p.name)
+                slot.proc.kill()
+        p.start()
+        self._log_start(w, stage, "cold")
+        with self._state_lock:
+            self.current[w] = p
+
+    @staticmethod
+    def _log_start(w: PeerID, stage: Stage, how: str) -> None:
+        """The runner's share of a join: from the Stage's arrival to the
+        worker's start (a FIFO write, or a process spawned)."""
+        if stage.received is not None:
+            log.info("kfrun: %s started (%s) %.1f ms after its Stage v%d arrived", w, how,
+                     (time.monotonic() - stage.received) * 1e3, stage.version)
+
+    def _release_slots(self, w: PeerID) -> None:
+        if self.slot_pool is not None and w in self._worker_slots:
+            self.slot_pool.put(self._worker_slots.pop(w))
+
+    def _reset_heartbeats(self, stage: Stage) -> None:
+        """Any membership change invalidates heartbeat rank bookkeeping:
+        ranks are re-assigned by the new peer list, and a leaver killed
+        mid-batch would otherwise stay 'stuck' forever and get a HEALTHY
+        worker at its old rank killed later."""
+        if self.hb_state is not None:
+            self.hb_state.reset(stage.progress)
+
+    def apply_delta(self, stage: Stage) -> None:
+        self.last_stage = stage
+        self._reset_heartbeats(stage)
+        new_local = {w for w in stage.cluster.workers if w.host == self.self_host}
+        with self._state_lock:
+            old_local = set(self.current)
+        for w in old_local - new_local:
+            with self._state_lock:
+                proc = self.current.pop(w)
+            self._gone.append(proc)  # worker exits itself on detach
+            self._release_slots(w)
+        for w in sorted(new_local - old_local):
+            self._spawn(w, stage)
+
+    def apply_full(self, stage: Stage) -> None:
+        """Reload mode: stop everything, restart from stage.progress."""
+        self.last_stage = stage
+        self._reset_heartbeats(stage)
+        with self._state_lock:
+            doomed = list(self.current.items())
+            self.current.clear()
+        for w, proc in doomed:
+            proc.kill()
+            self._release_slots(w)
+        for w in stage.cluster.workers:
+            if w.host == self.self_host:
+                self._spawn(w, stage)
+
+    def report_dead(self, dead: List[PeerID]) -> None:
+        """Log each dead worker's exit code and the tail of its output,
+        once per process."""
+        for w in dead:
+            with self._state_lock:
+                proc = self.current.get(w)
+            if proc is None or proc.proc is None:
+                continue
+            key = (str(w), proc.proc.pid)
+            if key in self._reported:
+                continue
+            self._reported.add(key)
+            log.warn("kfrun: worker %s died with exit code %s; its last output:\n%s",
+                     w, proc.proc.returncode, "\n".join(proc.output_tail()[-TAIL_LINES:]))
+
+    def _dead_workers(self) -> List[PeerID]:
+        """Local workers that died WITHOUT a Stage removing them: exit
+        code != 0 while still a cluster member = a real failure (normal
+        completion exits 0, and leavers are moved to _gone first)."""
+        with self._state_lock:
+            return [
+                w for w, p in self.current.items()
+                if not p.running and p.proc.returncode not in (0, None)
+            ]
+
+    def _put_config(self, cluster: Cluster) -> None:
+        if not self.config_server_url:
+            return
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.config_server_url, data=cluster.dumps().encode(), method="PUT"
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=5) as resp:
+                resp.read()
+        except OSError as e:
+            log.warn("kfrun: config-server PUT failed: %s", e)
+
+    def recover_from_failure(self, dead: List[PeerID]) -> None:
+        """Shrink the dead workers out and reload the survivors from the
+        last known progress. The recovery Stage is applied locally,
+        broadcast to every other runner's control endpoint, and published
+        to the config server so later elastic polls don't resize the
+        corpses back in."""
+        self.failure_restarts += 1
+        self.report_dead(dead)
+        codes = {
+            str(w): (self.current[w].proc.returncode if w in self.current else "?")
+            for w in dead
+        }
+        if self.failure_restarts > 10:
+            log.error("kfrun: too many failure recoveries, giving up")
+            self.exit_code = 1
+            self.done.set()
+            return
+        base = self.last_stage
+        survivors = [w for w in base.cluster.workers if w not in set(dead)]
+        log.warn("kfrun: workers %s died; reloading at size %d", codes, len(survivors))
+        if not survivors:
+            log.error("kfrun: no survivors; giving up")
+            self.exit_code = 1
+            self.done.set()
+            return
+        progress = base.progress
+        if self.hb_state is not None:
+            n_local = sum(1 for w in base.cluster.workers if w.host == self.self_host)
+            progress = max(progress, self.hb_state.min_epoch(n_local))
+        cluster = Cluster(runners=base.cluster.runners, workers=PeerList(survivors))
+        # version skewed by this runner's index so two hosts detecting
+        # failures in the same window mint DIFFERENT versions instead of
+        # colliding on max+1 with different clusters (which the diverged-
+        # digest safety check would abort the whole job over). Both reload
+        # stages then apply in version order; if each removed only its own
+        # corpse, the later one still carries the other corpse and the next
+        # detection round (restart cap 10) converges.
+        runners = list(base.cluster.runners)
+        self_idx = next((i for i, r in enumerate(runners) if r.host == self.self_host), 0)
+        stage = Stage(
+            version=max(self.seen_versions) + 1 + self_idx,
+            progress=progress,
+            cluster=cluster,
+            reload=True,
+        )
+        self.seen_versions[stage.version] = stage.digest()
+        self.record_stage(stage)
+        self._put_config(cluster)
+        # fan the reload out to the other runners (their workers are
+        # blocked in collectives against the corpse)
+        others = [r for r in cluster.runners if r.host != self.self_host]
+        if others:
+            from kungfu_tpu_torch.transport.client import Client
+
+            payload = json.dumps(stage.to_json()).encode()
+            cl = Client(PeerID(self.self_host, self.args.runner_port))
+            for r in others:
+                try:
+                    cl.send(r, "update", payload, ConnType.CONTROL)
+                except (ConnectionError, OSError) as e:
+                    log.warn("kfrun: notify %s failed: %s", r, e)
+            cl.close()
+        self.apply_full(stage)
+
+    def _check_failures(self) -> bool:
+        """-auto-recover: recover from dead or stuck local workers while
+        others still run; True if a recovery ran."""
+        dead = self._dead_workers()
+        if not dead and self.hb_state is not None and self.last_stage is not None:
+            # hung (not dead) workers: same grace rule as monitored mode;
+            # kill them so recovery treats them as dead
+            workers = self.last_stage.cluster.workers
+            for r in self.hb_state.stuck_ranks(self.grace):
+                if 0 <= r < len(workers):
+                    w = workers[r]
+                    with self._state_lock:
+                        proc = self.current.get(w)
+                    if proc is not None:
+                        log.warn("kfrun: worker %s stuck > %ss; killing", w, self.grace)
+                        proc.kill()
+                        dead.append(w)
+        if dead and any(p.running for p in self.current.values()):
+            # partial death: recover NOW (survivors are stuck); a full
+            # death falls through to the all-exited handling, where
+            # uniform nonzero exits also recover
+            self.recover_from_failure(dead)
+            return True
+        return False
+
+    def run(self, initial: Stage) -> int:
+        server = Server(PeerID(self.self_host, self.args.runner_port), use_unix=False)
+        server.register(ConnType.CONTROL, self.handle_control)
+        server.start()
+        debug = None
+        if getattr(self.args, "debug_port", -1) >= 0:
+            debug = DebugServer(self, self.args.debug_port)
+            debug.start()
+            log.info("kfrun: debug endpoint on :%d", debug.port)
+        timeout = getattr(self.args, "timeout", 0.0)
+        deadline = time.monotonic() + timeout if timeout else None
+        idle_since: Optional[float] = None
+        try:
+            self.apply_delta(initial)
+            self._initial_done = True
+            while not self.done.is_set():
+                if deadline is not None and time.monotonic() > deadline:
+                    log.error("kfrun: -timeout %ss reached; killing the workers", timeout)
+                    self.exit_code = 1
+                    break
+                try:
+                    stage = self.stage_q.get(timeout=0.5)
+                except queue.Empty:
+                    # Exit when all local workers have finished. In reload
+                    # mode only, wait out a drain grace first: workers
+                    # notify the runner and exit immediately, so the final
+                    # Stage can still be in flight when the last proc dies —
+                    # concluding too early drops the reload and strands the
+                    # cluster. Delta-mode exits stay prompt.
+                    grace = 2.0 if self.args.elastic_mode == "reload" else 0.0
+                    if self.auto_recover and self._check_failures():
+                        continue
+                    if self.current and all(not p.running for p in self.current.values()):
+                        if idle_since is None:
+                            idle_since = time.monotonic()
+                        if time.monotonic() - idle_since >= grace:
+                            codes = [p.proc.returncode for p in self.current.values()]
+                            if (
+                                self.auto_recover
+                                and any(c != 0 for c in codes)
+                                and self.last_stage is not None
+                                and any(w.host != self.self_host
+                                        for w in self.last_stage.cluster.workers)
+                            ):
+                                # every local worker is gone but remote
+                                # hosts still train: shrink this host out
+                                # instead of abandoning them mid-collective
+                                self.recover_from_failure(self._dead_workers())
+                                idle_since = None
+                                continue
+                            self.exit_code = 0 if all(c == 0 for c in codes) else 1
+                            if self.exit_code != 0:
+                                self.report_dead(self._dead_workers())
+                            break
+                    else:
+                        idle_since = None
+                    # reap detached workers
+                    self._gone = [p for p in self._gone if p.running]
+                    if self._refill_at is not None and time.monotonic() >= self._refill_at:
+                        self._refill_at = None
+                        self.standby_pool.refill()
+                    continue
+                idle_since = None
+                if stage.reload:
+                    self.apply_full(stage)
+                else:
+                    self.apply_delta(stage)
+            return self.exit_code
+        finally:
+            for p in self.current.values():
+                p.kill()
+            for p in self._gone:
+                p.kill()
+            if self.standby_pool is not None:
+                self.standby_pool.kill_all()
+            if self.monitor is not None:
+                self.monitor.stop()
+            server.stop()
+            if debug is not None:
+                debug.stop()
+
+
+def watch_run(args, cmd, cluster: Cluster, self_host: str, strategy, config_server_url: str) -> int:
+    watcher = Watcher(args, cmd, self_host, strategy, config_server_url)
+    initial = Stage(version=0, progress=0, cluster=cluster)
+    watcher.seen_versions[0] = initial.digest()
+    watcher.record_stage(initial)
+    return watcher.run(initial)

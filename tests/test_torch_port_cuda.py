@@ -913,3 +913,33 @@ def test_cuda_async_api_and_sharded_update_session_on_card_tensors(monkeypatch):
         # mean gradient of round t: (0 + 1 + 2) / 3 + t = 1 + t
         for p, p0 in zip(outs[r], (1.0, 2.0)):
             assert p.device.type == "cuda" and torch.equal(p, torch.full_like(p, p0 - 0.5 - 1.0))
+
+
+@pytest.mark.cuda
+def test_elastic_state_leaves_on_the_card_round_trip_through_pinned_buffers():
+    """ElasticState's sync on card leaves: packed through the api's pinned
+    pool (channels-last and bf16 leaves among them), unpacked into new
+    tensors on the card of each old leaf's dtype and shape, bit for bit."""
+    _need_card()
+    from kungfu_tpu_torch.base.serialize import pack_leaves, unpack_leaves
+    from kungfu_tpu_torch.elastic.state import _host_leaves, _like, tree_flatten
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = {"w": torch.randn(8, 4, 3, 3, device="cuda", generator=gen).to(
+                 memory_format=torch.channels_last),
+             "b": torch.randn(5, device="cuda", generator=gen).bfloat16(),
+             "n": torch.arange(6, device="cuda").reshape(2, 3),
+             "step": torch.tensor([9]), "lr": 0.25}
+    leaves, unflatten = tree_flatten(state)
+    host, staged = _host_leaves(leaves)
+    try:
+        blob = pack_leaves(host)
+    finally:
+        from kungfu_tpu_torch import api
+        api._release(staged)
+    zeros = [torch.zeros_like(x) if isinstance(x, torch.Tensor) else 0.0 for x in leaves]
+    back = unflatten([_like(nl, ol) for nl, ol in zip(unpack_leaves(blob, len(leaves)), zeros)])
+    for k in ("w", "b", "n", "step"):
+        assert back[k].device == state[k].device and back[k].dtype == state[k].dtype
+        assert torch.equal(back[k], state[k]), k
+    assert float(back["lr"]) == 0.25

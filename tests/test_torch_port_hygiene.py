@@ -30,7 +30,14 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "peer", "api",
                       # the asynchronous host plane and the torch frontend on it
                       "collective.scheduler", "collective.zero", "torch",
-                      "examples.bert_sma")
+                      "examples.bert_sma",
+                      # elastic membership: the runner, the config server and
+                      # the elastic training loop
+                      "runner.proc", "runner.slots", "runner.affinity", "runner.platform",
+                      "runner.cli", "runner.monitored", "runner.standby", "runner.watch",
+                      "runner.distribute", "cmd", "elastic", "elastic.configserver",
+                      "elastic.schedule", "elastic.dataset", "elastic.state",
+                      "examples.elastic_train")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -75,7 +82,7 @@ def test_every_module_of_the_slice_exists():
                 "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
-    for src in ("reduce.cpp", "mst.cpp", "io_pump.cpp"):
+    for src in ("reduce.cpp", "mst.cpp", "io_pump.cpp", "pdeathsig.c"):
         assert (REPO / "kungfu_tpu_torch" / "csrc" / "host" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
@@ -94,7 +101,7 @@ def test_the_frontend_subpackage_leaves_resolve_device_working():
 
 def _entry_points():
     from kungfu_tpu_torch import bench, graft_entry
-    from kungfu_tpu_torch.examples import bert_sma, bert_ssgd, mnist_slp
+    from kungfu_tpu_torch.examples import bert_sma, bert_ssgd, elastic_train, mnist_slp
     from kungfu_tpu_torch.monitor.noise_scale import gns_init
     from kungfu_tpu_torch.models.mlp import init_mlp
     from kungfu_tpu_torch.models.resnet import init_resnet, resnet18_thin
@@ -117,6 +124,7 @@ def _entry_points():
         "graft_entry.entry": lambda: graft_entry.entry(),
         "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
         "gns_init": lambda: gns_init(),
+        "elastic_train.main": lambda: elastic_train.main(["--samples", "64"]),
     }
 
 
@@ -124,7 +132,7 @@ def _entry_points():
                                   "initialize_device_plane", "make_mesh", "make_mesh_2d",
                                   "bert_ssgd.main", "bert_sma.main", "init_resnet", "init_mlp",
                                   "mnist_slp.main", "bench.main", "graft_entry.entry",
-                                  "dryrun_multichip", "gns_init"])
+                                  "dryrun_multichip", "gns_init", "elastic_train.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -91,8 +91,11 @@ def test_registry_and_doc():
         "KF_CONFIG_ZERO", "KF_CONFIG_REPLAN", "KF_REPLAN_DEMOTE_PATIENCE", "KF_CONFIG_SHM",
         "KF_CONFIG_SHM_CAPACITY", "KF_CONFIG_SHM_MIN_BYTES", "KF_DEBUG_PROTOCOL",
         # the async scheduler's
-        "KF_CONFIG_ASYNC_QUEUE"}
-    assert len(knobs.names()) == 33
+        "KF_CONFIG_ASYNC_QUEUE",
+        # the runners' (kfrun, monitored, standby)
+        "KF_RUNNER_PID", "KF_RECOVER_EPOCH", "KF_MONITOR_ADDR", "KF_STANDBY_FIFO",
+        "KF_STANDBY_PRELOAD", "KF_ACTIVATED_TS"}
+    assert len(knobs.names()) == 39
     doc = knobs.render_doc()
     theirs = set(rknobs.render_doc().splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
