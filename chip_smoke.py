@@ -132,7 +132,44 @@ Phases, each printing one JSON line:
            the losses finite and falling; prints each resize's phases, the
            state sync's seconds and bytes, each joiner's spawn-to-ready ms
            (standby or cold), the runner's Stage-to-start ms, and the step
-           ms at 2 and 4 workers.
+           ms at 2 and 4 workers;
+  checkpoint  config 5's recovery path: in process, ResNet-50's training
+           state (parameters, BN statistics, momentum, int64 step) on card 0
+           saved by the port's Checkpointer at steps 1-3 (window 2) and
+           restored under KF_RECOVER_EPOCH=2; then 2 workers under the port's
+           kfrun -auto-recover train it at 16 images a rank for 6 steps, a
+           checkpoint every 2, rank 1 crashing once after the step-4
+           checkpoint (results in `build/chip_smoke_ckpt/`); gates: the
+           restore bitwise the saved state on the card, the window and the
+           cap, `dump_final_variables` byte-equal to `pack_leaves` in jax's
+           order, the resumed run's final state bitwise the uninterrupted
+           run's; prints save and restore s and GB/s, bytes on disk, and the
+           time to recover split into the runner's relaunch, the workers'
+           start, the restore and the first step;
+  resize_bench  `python -m kungfu_tpu_torch.bench_resize` (its JSON line;
+           gate: at least 5 resizes), then `examples/adaptive_batch` under
+           the port's kfrun -w from 1 worker on 4 slots; gates: it grows, its
+           sizes never fall nor pass 4, every worker prints done, the ranks'
+           w bitwise equal;
+  pair     BASELINE config 4's optimizer at full width: 4 workers on card
+           0, ResNet-50 at 16 images a rank on fixed batches, PairAveraging
+           over SGD(0.1, 0.9) for 6 steps; gates: finite falling losses, an
+           averaged step on every rank, each averaged step bitwise its replay
+           (the f32 average with the fetched blob, then the base step);
+           prints step ms, the join's exposed wait against the prefetch's
+           own time, pack and publish ms, bytes fetched; then
+           `examples/cyclegan_pair` on 2 workers (gate: its probe);
+  hier     4 workers on card 0 as 2 worlds x 2 ranks (gloo in a world,
+           the host plane across), ResNet-50 at 16 images a rank, SGD, 4
+           steps with the cross-world wire in f32, then bf16; gates: every
+           rank's parameters equal after every step (MIN and MAX
+           all-reduces), the first step's mean within the f32 limit (bf16:
+           2 max|mean| 2^-8) of a flat host all-reduce's; prints step ms
+           split into backward, in-world mean, leaders' walk and broadcast,
+           the cross-world wire bytes beside the flat all-reduce's; then
+           `examples/multislice_train` at world sizes 2 and 1 (each ends
+           with its worlds' MIN/MAX check);
+  wall     the script's seconds before the checkpoint phase and after.
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -1889,25 +1926,6 @@ def hostnet_worker(rank: int, _spawned, specs) -> None:
         finalize_default_peer()
 
 
-def _free_ports(n: int) -> list:
-    """n ports the kernel calls free (bound to 0, then closed), none in
-    kfrun's 38000-38999."""
-    import socket
-
-    socks, out = [], []
-    try:
-        while len(out) < n:
-            s = socket.socket()
-            s.bind(("127.0.0.1", 0))
-            socks.append(s)
-            if not 38000 <= s.getsockname()[1] < 39000:
-                out.append(s.getsockname()[1])
-    finally:
-        for s in socks:
-            s.close()
-    return out
-
-
 def hostnet_phase(smi: str, replay: dict) -> dict:
     """The host all-reduce between processes: 4 workers on card 0, each a
     Peer started from kfrun's environment, all-reduce their ResNet-50
@@ -1926,13 +1944,14 @@ def hostnet_phase(smi: str, replay: dict) -> dict:
     from kungfu_tpu_torch.collective.strategies import gen_global_strategies
     from kungfu_tpu_torch.parallel.distributed import spawn_world
     from kungfu_tpu_torch.plan.peer import PeerList
+    from kungfu_tpu_torch.runner.cli import free_ports
 
     t_phase = time.perf_counter()
     k = HOSTNET_RANKS
     HOSTNET_OUT.mkdir(parents=True, exist_ok=True)
     for f in list(HOSTNET_OUT.glob("*.json")) + list(HOSTNET_OUT.glob("*.pt")):
         f.unlink()
-    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    specs = [f"127.0.0.1:{p}" for p in free_ports(k)]
     shm_stat = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
     spawn_world(hostnet_worker, k, HOSTNET_DEADLINE_S, args=(specs,))
     ranks = [json.loads((HOSTNET_OUT / f"rank{r}.json").read_text()) for r in range(k)]
@@ -2107,13 +2126,14 @@ def sma_phase(smi: str) -> list:
     from kungfu_tpu_torch.models.transformer import TransformerConfig
     from kungfu_tpu_torch.parallel.distributed import spawn_world
     from kungfu_tpu_torch.plan.peer import PeerList
+    from kungfu_tpu_torch.runner.cli import free_ports
 
     t_phase = time.perf_counter()
     k = SMA_RANKS
     SMA_OUT.mkdir(parents=True, exist_ok=True)
     for f in list(SMA_OUT.glob("*.json")) + list(SMA_OUT.glob("*.pt")):
         f.unlink()
-    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    specs = [f"127.0.0.1:{p}" for p in free_ports(k)]
     spawn_world(sma_worker, k, SMA_DEADLINE_S, args=(specs,))
     ranks = [json.loads((SMA_OUT / f"rank{r}.json").read_text()) for r in range(k)]
     cfg = TransformerConfig.bert_base()
@@ -2262,12 +2282,14 @@ def async_phase(smi: str) -> None:
     post-accumulate-grad hooks, by its step-end path, and by ZeroSGD;
     their parameters must agree bit for bit after every step, on every
     rank."""
+    from kungfu_tpu_torch.runner.cli import free_ports
+
     t_phase = time.perf_counter()
     k = ASYNC_RANKS
     ASYNC_OUT.mkdir(parents=True, exist_ok=True)
     for f in ASYNC_OUT.glob("*.json"):
         f.unlink()
-    specs = [f"127.0.0.1:{p}" for p in _free_ports(k)]
+    specs = [f"127.0.0.1:{p}" for p in free_ports(k)]
     from kungfu_tpu_torch.parallel.distributed import spawn_world
 
     spawn_world(async_worker, k, ASYNC_DEADLINE_S, args=(specs,))
@@ -2317,30 +2339,6 @@ ELASTIC_DEADLINE_S = 500
 ELASTIC_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
 
 
-def _free_range(n: int) -> int:
-    """The first of n consecutive ports that bind now, in 12000-19999
-    (outside kfrun's 38000-38999 and the device plane's 20000-29999)."""
-    import random
-    import socket
-
-    rng = random.Random()
-    for _ in range(200):
-        base = rng.randrange(12000, 20000 - n)
-        socks = []
-        try:
-            for port in range(base, base + n):
-                sock = socket.socket()
-                socks.append(sock)
-                sock.bind(("127.0.0.1", port))
-            return base
-        except OSError:
-            continue
-        finally:
-            for sock in socks:
-                sock.close()
-    raise RuntimeError("no free port range")
-
-
 def _elastic_data():
     """ELASTIC_SAMPLES uint8 images of 224x224x3 from numpy seed 0, each a
     noisy copy of its class's pattern, and their labels."""
@@ -2354,6 +2352,37 @@ def _elastic_data():
     return images, labels.astype(np.int64)
 
 
+def _ssgd_step(model, opt, grads, stats, batch, size: int, name: str):
+    """One ResNet-50 S-SGD step over the host plane: the gradients, the
+    float running statistics and the loss, fused into one buffer,
+    averaged by one host all-reduce named `name` and copied back; then
+    the optimizer's step. Returns the averaged loss and the clock
+    readings just before and just after the all-reduce."""
+    import torch
+
+    from kungfu_tpu_torch import api
+    from kungfu_tpu_torch.models.resnet import resnet_loss
+    from kungfu_tpu_torch.ops.collective import defuse
+
+    opt.zero_grad(set_to_none=False)
+    loss = resnet_loss(model, batch)
+    loss.backward()
+    fused = torch.cat([p.grad.reshape(-1) for p in grads]
+                      + [b.reshape(-1) for b in stats] + [loss.detach().reshape(1)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    avg = api.all_reduce_array(fused, name=name) / size
+    t2 = time.perf_counter()  # all_reduce_array returns once its copy back ended
+    parts = defuse(avg, [p.shape for p in grads] + [b.shape for b in stats] + [(1,)])
+    with torch.no_grad():
+        for p, g in zip(grads, parts):
+            p.grad.copy_(g)
+        for b, v in zip(stats, parts[len(grads):]):
+            b.copy_(v)
+    opt.step()
+    return float(parts[-1]), t1, t2
+
+
 def elastic_worker() -> int:
     """One worker of the elastic phase, started by the port's kfrun (cold,
     or as an activated warm standby): ResNet-50 S-SGD with momentum over
@@ -2361,13 +2390,11 @@ def elastic_worker() -> int:
     StepBasedSchedule on rank 0 through kfrun's config server."""
     import hashlib
 
-    import numpy as np
     import torch
 
     from kungfu_tpu_torch import api, knobs, resolve_device
     from kungfu_tpu_torch.elastic import ElasticDataset, ElasticState, StepBasedSchedule
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
-    from kungfu_tpu_torch.ops.collective import defuse
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
     from kungfu_tpu_torch.peer import finalize_default_peer
     from kungfu_tpu_torch.utils import trace
 
@@ -2432,27 +2459,11 @@ def elastic_worker() -> int:
                 rec["indices"] = ds.indices_at(es.progress, rank, size).tolist()
                 batch = (torch.from_numpy(xb).to(device).to(torch.bfloat16) / 255.0,
                          torch.from_numpy(yb).to(device))
-                opt.zero_grad()
-                loss = resnet_loss(model, batch)
-                loss.backward()
-                # S-SGD: the gradients, the running statistics and the loss,
-                # fused and averaged over the host plane
-                fused = torch.cat([p.grad.reshape(-1) for p in grads]
-                                  + [b.reshape(-1) for b in stats] + [loss.detach().reshape(1)])
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                avg = api.all_reduce_array(fused, name=f"g{int(step)}") / size
-                t2 = time.perf_counter()  # all_reduce_array returns once its copy back ended
-                parts = defuse(avg, [p.shape for p in grads] + [b.shape for b in stats] + [(1,)])
-                with torch.no_grad():
-                    for p, g in zip(grads, parts):
-                        p.grad.copy_(g)
-                    for b, v in zip(stats, parts[len(grads):]):
-                        b.copy_(v)
-                opt.step()
+                loss, t1, t2 = _ssgd_step(model, opt, grads, stats, batch, size,
+                                          f"g{int(step)}")
                 step += 1
                 torch.cuda.synchronize()
-                rec["loss"] = float(parts[-1])
+                rec["loss"] = loss
                 rec["step_ms"] = (time.perf_counter() - t0) * 1e3
                 # the step's split: forward and backward, the host all-reduce
                 # (staging both ways included), the update
@@ -2479,11 +2490,13 @@ def elastic_phase(smi: str) -> None:
     watch mode with one warm standby starts 2 workers; a StepBasedSchedule
     grows the world to 4 and shrinks it back to 2 while ResNet-50 trains
     under ElasticState."""
+    from kungfu_tpu_torch.runner.cli import free_port_range, free_ports
+
     t_phase = time.perf_counter()
     ELASTIC_OUT.mkdir(parents=True, exist_ok=True)
     for f in ELASTIC_OUT.glob("*"):
         f.unlink()
-    base, runner = _free_range(4), _free_ports(1)[0]
+    base, runner = free_port_range(4), free_ports(1)[0]
     env = {k: v for k, v in os.environ.items() if not k.startswith("KF_")}
     here = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "kungfu_tpu_torch.runner.cli", "-np", "2", "-H", "127.0.0.1:4",
@@ -2596,9 +2609,694 @@ def elastic_phase(smi: str) -> None:
          kfrun_seconds=kfrun_s, seconds=time.perf_counter() - t_phase)
 
 
+CKPT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+CKPT_STEPS, CKPT_EVERY = 6, 2  # training steps of the recovery run; a checkpoint every 2
+CKPT_CRASH_EPOCH = 2  # rank 1 crashes once, after the checkpoint of step 4
+CKPT_LR, CKPT_MOMENTUM = 0.05, 0.9
+CKPT_GRACE = "10s"  # kfrun -auto-recover: a rank stuck in a step this long restarts the world
+CKPT_DEADLINE_S = 300
+
+
+def _resnet_state(device, seed: int):
+    """ResNet-50 at full width as training state: parameters, BN running
+    statistics, momentum (seeded, nonzero) and the int64 step, the tree
+    ElasticState syncs (204,686,262 B)."""
+    import torch
+
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
+
+    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    momentum = {k: torch.randn(p.shape, generator=gen, device=device) * 1e-3
+                for k, p in params.items()}
+    return {"params": params, "buffers": dict(model.named_buffers()), "momentum": momentum,
+            "step": torch.zeros(1, dtype=torch.int64)}
+
+
+def _tree_bytes(leaves) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def checkpoint_worker(ckdir: str, out_dir: str, crash: bool) -> int:
+    """One worker of the checkpoint phase's recovery run, under the
+    port's kfrun -auto-recover: ResNet-50 S-SGD with momentum over the host
+    plane at 16 images a rank, a Checkpointer save (rank 0) every
+    CKPT_EVERY steps; with `crash`, rank 1 exits after the checkpoint of
+    epoch CKPT_CRASH_EPOCH, once. Writes its clock readings, losses and
+    final state's digest."""
+    t_start = time.time()
+    import hashlib
+
+    import torch
+
+    from kungfu_tpu_torch import api, cmd, knobs, resolve_device
+    from kungfu_tpu_torch.elastic.checkpoint import Checkpointer
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
+    from kungfu_tpu_torch.peer import finalize_default_peer
+
+    restart = "--restart" in sys.argv
+    rank, size = api.current_rank(), api.cluster_size()  # starts this worker's Peer
+    t_ready = time.time()
+    out = {"rank": rank, "restart": restart, "t_spawn": float(knobs.raw("KF_SPAWN_TS") or 0),
+           "t_start": t_start, "t_ready": t_ready, "losses": [], "step_ms": []}
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True)
+        device = resolve_device()
+        torch.zeros(1, device=device).sum().item()  # the CUDA context
+        out["t_context"] = time.time()
+        images, labels = _elastic_data()
+        out["t_data"] = time.time()
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = dict(model.named_parameters())
+        buffers = dict(model.named_buffers())
+        opt = torch.optim.SGD(list(params.values()), lr=CKPT_LR, momentum=CKPT_MOMENTUM)
+        for p in params.values():
+            opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+        momentum = {k: opt.state[p]["momentum_buffer"] for k, p in params.items()}
+        step_t = torch.zeros(1, dtype=torch.int64)
+        state = {"params": params, "buffers": buffers, "momentum": momentum, "step": step_t}
+        torch.cuda.synchronize()
+        out["t_built"] = time.time()
+        ckpt = Checkpointer(ckdir, max_to_keep=2, save_rank=0)
+        got, start_epoch = ckpt.restore_or(state)
+        if start_epoch:
+            with torch.no_grad():
+                for part in ("params", "buffers", "momentum"):
+                    for k, v in got[part].items():
+                        state[part][k].copy_(v)
+                step_t.copy_(got["step"])
+        torch.cuda.synchronize()
+        out.update(start_epoch=start_epoch, t_restored=time.time())
+        grads = list(params.values())
+        stats = [b for b in buffers.values() if b.is_floating_point()]
+        n = ELASTIC_BATCH
+        for step in range(start_epoch * CKPT_EVERY, CKPT_STEPS):
+            t0 = time.perf_counter()
+            cmd.monitor_batch_begin(rank)
+            lo = (step * size + rank) * n % ELASTIC_SAMPLES
+            xb = torch.from_numpy(images[lo:lo + n]).to(device).to(torch.bfloat16) / 255.0
+            yb = torch.from_numpy(labels[lo:lo + n]).to(device)
+            loss, _, _ = _ssgd_step(model, opt, grads, stats, (xb, yb), size, f"ck{step}")
+            step_t += 1
+            torch.cuda.synchronize()
+            cmd.monitor_batch_end(rank)
+            out["losses"].append(loss)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out.setdefault("t_first_step", time.time())
+            if (step + 1) % CKPT_EVERY == 0:
+                epoch = (step + 1) // CKPT_EVERY
+                t1 = time.perf_counter()
+                ckpt.save(epoch, state)
+                api.run_barrier()  # every rank knows the step is on disk
+                out.setdefault("save_ms", []).append((time.perf_counter() - t1) * 1e3)
+                cmd.monitor_epoch_end(rank)
+                if crash and not restart and rank == 1 and epoch == CKPT_CRASH_EPOCH:
+                    out["t_crash"] = time.time()
+                    (Path(out_dir) / "crash.json").write_text(json.dumps(out))
+                    os._exit(3)
+        h = hashlib.sha256()
+        for part in ("params", "buffers", "momentum"):
+            for k in sorted(state[part]):
+                h.update(state[part][k].detach().cpu().contiguous().reshape(-1)
+                         .view(torch.uint8).numpy().tobytes())
+        h.update(step_t.numpy().tobytes())
+        out.update(digest=h.hexdigest(), final_step=int(step_t))
+        cmd.monitor_train_end(rank)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        finalize_default_peer()
+    return 0
+
+
+def _kfrun(args, deadline_s: int, **env_extra):
+    """The port's kfrun from the checkout's root, KF_* knobs stripped, on
+    free ports outside 38000-38999; returns (CompletedProcess, seconds)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KF_")}
+    env.update(CUBLAS_WORKSPACE_CONFIG=":4096:8", **env_extra)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "kungfu_tpu_torch.runner.cli", *args],
+                       cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                       text=True, timeout=deadline_s + 60)
+    return r, time.perf_counter() - t0
+
+
+def _recovery_run(name: str, crash: bool) -> dict:
+    """The recovery run of 2 workers on card 0 (`crash`: rank 1 dies
+    once); returns the workers' records."""
+    import shutil
+
+    from kungfu_tpu_torch.runner.cli import free_port_range, free_ports
+
+    out = CKPT_OUT / name
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    base, runner = free_port_range(2), free_ports(1)[0]
+    r, secs = _kfrun(["-np", "2", "-H", "127.0.0.1:2", "-auto-recover", CKPT_GRACE,
+                      "-monitor-port", "0", "-port-range", f"{base}-{base + 1}",
+                      "-runner-port", str(runner), "-timeout", str(CKPT_DEADLINE_S),
+                      sys.executable, "chip_smoke.py", "--checkpoint-worker", str(out / "ck"),
+                      str(out), "1" if crash else "0"], CKPT_DEADLINE_S)
+    (out / "kfrun.log").write_text(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    check(r.returncode == 0, f"checkpoint {name}: kfrun exited {r.returncode}:\n"
+          f"{r.stderr[-3000:]}")
+    ranks = [json.loads((out / f"rank{i}.json").read_text()) for i in range(2)]
+    crash_rec = json.loads((out / "crash.json").read_text()) if crash else None
+    return {"ranks": ranks, "crash": crash_rec, "kfrun_seconds": secs,
+            "restarts": (r.stdout + r.stderr).count("restarting")}
+
+
+def checkpoint_phase(smi: str) -> None:
+    """Config 5's recovery path. In process: ResNet-50's training state on
+    card 0 saved at steps 1-3 (window 2), restored under KF_RECOVER_EPOCH=2;
+    then two workers under the port's kfrun -auto-recover, rank 1 crashing
+    after the step-4 checkpoint, against an uninterrupted run."""
+    import shutil
+
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch.base.serialize import pack_leaves
+    from kungfu_tpu_torch.elastic.checkpoint import (Checkpointer, dump_final_variables)
+    from kungfu_tpu_torch.elastic.state import tree_flatten
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_OUT, ignore_errors=True)
+    CKPT_OUT.mkdir(parents=True)
+    device = resolve_device()
+    state = _resnet_state(device, seed=7)
+    leaves, _ = tree_flatten(state)
+    nbytes = _tree_bytes(leaves)
+    ckpt = Checkpointer(str(CKPT_OUT / "inproc"), max_to_keep=2, save_rank=None)
+    save_s, saved = [], None
+    first = next(iter(state["params"]))
+    for s in (1, 2, 3):
+        with torch.no_grad():
+            state["params"][first].add_(1.0)
+        state["step"].fill_(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(ckpt.save(s, state), f"checkpoint: step {s} was not saved")
+        save_s.append(time.perf_counter() - t0)
+        if s == 2:
+            saved = [x.clone() for x in leaves]
+    steps = ckpt.all_steps()
+    check(steps == [2, 3], f"checkpoint: the window holds steps {steps}, not [2, 3]")
+    disk = sum(f.stat().st_size for f in (CKPT_OUT / "inproc").rglob("*") if f.is_file())
+    like = {part: {k: torch.zeros_like(v) for k, v in state[part].items()}
+            for part in ("params", "buffers", "momentum")}
+    like["step"] = torch.zeros(1, dtype=torch.int64)
+    os.environ["KF_RECOVER_EPOCH"] = "2"
+    try:
+        check(ckpt.latest_step() == 2, f"checkpoint: KF_RECOVER_EPOCH=2 gave step "
+              f"{ckpt.latest_step()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, start = ckpt.restore_or(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        del os.environ["KF_RECOVER_EPOCH"]
+    check(start == 2, f"checkpoint: restored step {start}, not 2")
+    got_leaves, _ = tree_flatten(got)
+    for g, w, l in zip(got_leaves, saved, leaves):
+        check(g.device == l.device and g.dtype == l.dtype and g.shape == l.shape
+              and torch.equal(g, w), "checkpoint: a restored leaf differs from step 2's")
+    dump = CKPT_OUT / "variables-final.kf"
+    t0 = time.perf_counter()
+    dump_final_variables(str(dump), state)
+    dump_s = time.perf_counter() - t0
+    check(dump.read_bytes() == pack_leaves([x.cpu() for x in leaves]),
+          "checkpoint: dump_final_variables differs from pack_leaves in jax order")
+    blob = (CKPT_OUT / "inproc" / "3" / "state.kf").stat().st_size
+    del saved, got, got_leaves, like
+    shutil.rmtree(CKPT_OUT / "inproc")
+    dump.unlink()
+
+    plain = _recovery_run("plain", crash=False)
+    crashed = _recovery_run("crash", crash=True)
+    for a, b in zip(plain["ranks"], crashed["ranks"]):
+        check(a["final_step"] == b["final_step"] == CKPT_STEPS,
+              f"checkpoint: final steps {a['final_step']} and {b['final_step']}")
+        check(a["digest"] == b["digest"], f"checkpoint rank {a['rank']}: the resumed run's "
+              "final state differs from the uninterrupted run's")
+    check(plain["ranks"][0]["digest"] == plain["ranks"][1]["digest"],
+          "checkpoint: the ranks' final states differ")
+    check(all(r["restart"] and r["start_epoch"] == CKPT_CRASH_EPOCH for r in crashed["ranks"]),
+          f"checkpoint: the relaunch resumed from "
+          f"{[r.get('start_epoch') for r in crashed['ranks']]}, not epoch {CKPT_CRASH_EPOCH}")
+    losses = plain["ranks"][0]["losses"]
+    check(all(math.isfinite(x) for x in losses), f"checkpoint: losses {losses}")
+    for run in ("plain", "crash"):
+        shutil.rmtree(CKPT_OUT / run / "ck")  # 2 x 205 MB a run
+    t_crash = crashed["crash"]["t_crash"]
+    rs = crashed["ranks"]
+    recover = {
+        "total_s": max(r["t_first_step"] for r in rs) - t_crash,
+        # the crash until the runner's relaunch (its detection included)
+        "runner_relaunch_s": min(r["t_spawn"] for r in rs) - t_crash,
+        # spawn to a started Peer (interpreter, imports, peer start)
+        "workers_start_s": [r["t_ready"] - r["t_spawn"] for r in rs],
+        "cuda_context_s": [r["t_context"] - r["t_ready"] for r in rs],
+        "data_s": [r["t_data"] - r["t_context"] for r in rs],
+        "model_build_s": [r["t_built"] - r["t_data"] for r in rs],
+        "restore_s": [r["t_restored"] - r["t_built"] for r in rs],
+        "first_step_s": [r["t_first_step"] - r["t_restored"] for r in rs],
+    }
+    emit("checkpoint", nvidia_smi=smi, state_bytes=nbytes, blob_bytes=blob,
+         leaves=len(leaves), bytes_on_disk_2_steps=disk, save_s=save_s,
+         save_gb_per_s=[blob / s / 1e9 for s in save_s], restore_s=restore_s,
+         restore_gb_per_s=blob / restore_s / 1e9, dump_s=dump_s,
+         recovery={"ranks": 2, "images_per_rank": ELASTIC_BATCH, "steps": CKPT_STEPS,
+                   "checkpoint_every": CKPT_EVERY, "grace": CKPT_GRACE,
+                   "restarts": crashed["restarts"], "time_to_recover": recover,
+                   "losses": losses, "step_ms": [r["step_ms"] for r in plain["ranks"]],
+                   "save_ms_rank0": plain["ranks"][0].get("save_ms"),
+                   "kfrun_seconds": {"plain": plain["kfrun_seconds"],
+                                     "crash": crashed["kfrun_seconds"]}},
+         seconds=time.perf_counter() - t_phase)
+
+
+ADAPTIVE_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_adaptive"
+ADAPTIVE_MAX_WORKERS = 4
+ADAPTIVE_DEADLINE_S = 300
+RESIZE_MIN = 5  # resizes bench_resize must time
+
+
+def adaptive_worker() -> int:
+    """One worker of the resize_bench phase's adaptive run:
+    `examples/adaptive_batch.main` on card 0, its records written out."""
+    import hashlib
+
+    from kungfu_tpu_torch import knobs
+    from kungfu_tpu_torch.examples import adaptive_batch
+    from kungfu_tpu_torch.peer import finalize_default_peer
+
+    spec = knobs.raw("KF_SELF_SPEC")
+    try:
+        out = adaptive_batch.main(["--max-workers", str(ADAPTIVE_MAX_WORKERS)])
+        w = out.pop("w")
+        out["w_digest"] = hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()
+        out["spec"] = spec
+        ADAPTIVE_OUT.mkdir(parents=True, exist_ok=True)
+        (ADAPTIVE_OUT / f"{spec.replace(':', '_')}.json").write_text(json.dumps(out))
+    finally:
+        finalize_default_peer()
+    return 0
+
+
+def resize_bench_phase(smi: str) -> None:
+    """BASELINE's elastic resize latency on the card's host
+    (`python -m kungfu_tpu_torch.bench_resize`), then config 5's GNS-driven
+    grow (`examples/adaptive_batch` under the port's kfrun -w)."""
+    import shutil
+
+    from kungfu_tpu_torch.runner.cli import free_port_range, free_ports
+
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KF_")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "kungfu_tpu_torch.bench_resize"],
+                       cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                       text=True, timeout=400)
+    bench_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"resize_bench: bench_resize exited {r.returncode}:\n"
+          f"{(r.stdout + r.stderr)[-3000:]}")
+    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    check(bench["n_resizes"] >= RESIZE_MIN, f"resize_bench: {bench['n_resizes']} resizes timed")
+
+    shutil.rmtree(ADAPTIVE_OUT, ignore_errors=True)
+    ADAPTIVE_OUT.mkdir(parents=True)
+    base, runner = free_port_range(ADAPTIVE_MAX_WORKERS), free_ports(1)[0]
+    r, kf_s = _kfrun(["-np", "1", "-H", f"127.0.0.1:{ADAPTIVE_MAX_WORKERS}", "-w",
+                      "-builtin-config-port", "0", "-port-range",
+                      f"{base}-{base + ADAPTIVE_MAX_WORKERS - 1}", "-runner-port", str(runner),
+                      "-monitor-port", "0", "-timeout", str(ADAPTIVE_DEADLINE_S),
+                      sys.executable, "chip_smoke.py", "--adaptive-worker"], ADAPTIVE_DEADLINE_S)
+    (ADAPTIVE_OUT / "kfrun.log").write_text(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    check(r.returncode == 0, f"adaptive: kfrun exited {r.returncode}:\n{r.stderr[-3000:]}")
+    workers = [json.loads(f.read_text()) for f in sorted(ADAPTIVE_OUT.glob("*.json"))]
+    done = [l for l in r.stdout.splitlines() if "done rank=" in l]
+    check(len(done) == len(workers) >= 2, f"adaptive: {len(done)} 'done' lines from "
+          f"{len(workers)} workers")
+    first = next(w for w in workers if w["steps"][0]["progress"] == 0)
+    sizes = [s["size"] for s in first["steps"]]
+    check(max(sizes) > 1, "adaptive: the cluster never grew")
+    check(all(a <= b for a, b in zip(sizes, sizes[1:])) and max(sizes) <= ADAPTIVE_MAX_WORKERS,
+          f"adaptive: sizes {sizes} fell or passed {ADAPTIVE_MAX_WORKERS}")
+    check(len({w["w_digest"] for w in workers}) == 1, "adaptive: the ranks' w differ")
+    grows = [(s["progress"], s["size"]) for a, s in zip(first["steps"], first["steps"][1:])
+             if s["size"] != a["size"]]
+    emit("resize_bench", nvidia_smi=smi, elastic_resize_latency=bench,
+         bench_seconds=bench_s,
+         adaptive={"workers": len(workers), "sizes_at_grows": grows,
+                   "gns_at_grows": [s["gns"] for a, s in zip(first["steps"], first["steps"][1:])
+                                    if s["size"] != a["size"]],
+                   "final_gns": first["steps"][-1]["gns"], "kfrun_seconds": kf_s},
+         seconds=time.perf_counter() - t_phase)
+
+
+PAIR_RANKS, PAIR_STEPS = 4, 6
+PAIR_LR, PAIR_MOMENTUM = 0.1, 0.9
+PAIR_DEADLINE_S = 400
+PAIR_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_pair"
+
+
+def _pair_rank(rank: int, specs) -> dict:
+    """One worker of the pair phase: ResNet-50 at 16 images a rank on a
+    fixed batch of its own, PairAveraging over SGD(0.1, 0.9); each
+    averaged step replayed on the card from its saved inputs."""
+    _worker_env(rank, specs)
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch.base.serialize import unpack_leaves
+    from kungfu_tpu_torch.elastic.state import tree_flatten
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.optimizers.pair_averaging import PairAveraging
+    from kungfu_tpu_torch.peer import get_default_peer
+
+    peer = get_default_peer()
+    device = resolve_device()
+    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    params = dict(model.named_parameters())
+    gen = torch.Generator(device=device).manual_seed(600 + rank)
+    batch = (torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                         generator=gen),
+             torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+    pa = PairAveraging(lambda ps: torch.optim.SGD(ps, lr=PAIR_LR, momentum=PAIR_MOMENTUM),
+                       name="chip")
+    opt = pa.init(params)
+    # the blob each step unpacks, kept here for the replay
+    fetched: list = []
+    unpack = pa._unpack_other
+
+    def keep_blob(blob):
+        fetched.append(bytes(blob))
+        return unpack(blob)
+
+    pa._unpack_other = keep_blob
+    leaves, _ = tree_flatten(params)
+    out = {"rank": rank, "losses": [], "step_ms": [], "exchange": [], "replayed": []}
+    for step in range(PAIR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in leaves:
+            p.grad = None
+        loss = resnet_loss(model, batch)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        before = [p.detach().clone() for p in leaves]
+        bufs = [opt.state[p].get("momentum_buffer") for p in leaves]
+        bufs = [None if b is None else b.clone() for b in bufs]
+        g_saved = [g.clone() for g in tree_flatten(grads)[0]]
+        torch.cuda.synchronize()
+        fetched.clear()
+        n_avg = pa.steps["avg"]
+        t1 = time.perf_counter()
+        pa.step(params, grads)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        averaged = pa.steps["avg"] > n_avg
+        out["losses"].append(loss.item())
+        out["step_ms"].append((t2 - t0) * 1e3)
+        out["exchange"].append(dict(pa.last, step_ms=(t2 - t1) * 1e3, averaged=averaged))
+        if averaged:
+            # the f32 average of (own params, the fetched blob), then the base step
+            other = unpack_leaves(fetched[-1], len(leaves))
+            replay = [b.clone().requires_grad_() for b in before]
+            with torch.no_grad():
+                for r, o in zip(replay, other):
+                    r.copy_((0.5 * (r.float() + o.to(device).float())).to(r.dtype))
+            ropt = torch.optim.SGD(replay, lr=PAIR_LR, momentum=PAIR_MOMENTUM)
+            for r, g, b in zip(replay, g_saved, bufs):
+                r.grad = g
+                if b is not None:
+                    ropt.state[r]["momentum_buffer"] = b
+            ropt.step()
+            out["replayed"].append(all(torch.equal(r, p) for r, p in zip(replay, leaves)))
+            del other, replay, ropt
+        del before, bufs, g_saved
+        fetched.clear()
+    out["steps"] = dict(pa.steps)
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in leaves)
+    if pa._prefetch is not None:
+        pa._prefetch.join(30)  # the last step's prefetch, before the peer stops
+    peer.current_session().barrier(":pair:end")
+    return out
+
+
+def pair_worker(rank: int, _spawned, specs) -> None:
+    try:
+        (PAIR_OUT / f"rank{rank}.json").write_text(json.dumps(_pair_rank(rank, specs)))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def _cyclegan_rank(rank: int, specs) -> dict:
+    _worker_env(rank, specs)
+    from kungfu_tpu_torch.examples import cyclegan_pair
+
+    t0 = time.perf_counter()
+    out = cyclegan_pair.main([])
+    out["seconds"] = time.perf_counter() - t0
+    out.pop("g_loss"), out.pop("d_loss")
+    return out
+
+
+def cyclegan_worker(rank: int, _spawned, specs) -> None:
+    try:
+        (PAIR_OUT / f"cyclegan{rank}.json").write_text(json.dumps(_cyclegan_rank(rank, specs)))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def pair_phase(smi: str) -> None:
+    """BASELINE config 4's optimizer at full width: 4 workers on card 0
+    train ResNet-50 under PairAveraging, exchanging 102 MB models through
+    the versioned p2p store; then `examples/cyclegan_pair` on 2 workers."""
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.runner.cli import free_ports
+
+    t_phase = time.perf_counter()
+    PAIR_OUT.mkdir(parents=True, exist_ok=True)
+    for f in PAIR_OUT.glob("*.json"):
+        f.unlink()
+    specs = [f"127.0.0.1:{p}" for p in free_ports(PAIR_RANKS)]
+    spawn_world(pair_worker, PAIR_RANKS, PAIR_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((PAIR_OUT / f"rank{r}.json").read_text()) for r in range(PAIR_RANKS)]
+    for r in ranks:
+        losses = r["losses"]
+        check(all(math.isfinite(x) for x in losses) and sum(losses[-3:]) / 3 < losses[0],
+              f"pair rank {r['rank']}: losses {losses}")
+        check(r["steps"]["avg"] >= 1, f"pair rank {r['rank']}: no averaged step {r['steps']}")
+        check(len(r["replayed"]) == r["steps"]["avg"] and all(r["replayed"]),
+              f"pair rank {r['rank']}: an averaged step differs from its replay "
+              f"{r['replayed']}")
+    t_cg = time.perf_counter()
+    cg_specs = [f"127.0.0.1:{p}" for p in free_ports(2)]
+    spawn_world(cyclegan_worker, 2, PAIR_DEADLINE_S, args=(cg_specs,))
+    cyclegan = [json.loads((PAIR_OUT / f"cyclegan{r}.json").read_text()) for r in range(2)]
+    check(all(c["err"] < 1.0 for c in cyclegan), f"cyclegan: probe errors "
+          f"{[c['err'] for c in cyclegan]}")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2] if xs else None
+
+    ex = [r["exchange"] for r in ranks]
+    emit("pair", nvidia_smi=smi, ranks=PAIR_RANKS, images_per_rank=OPT_BATCH,
+         steps=PAIR_STEPS, base=f"SGD(lr {PAIR_LR}, momentum {PAIR_MOMENTUM})",
+         param_bytes=ranks[0]["param_bytes"], losses=[r["losses"] for r in ranks],
+         step_ms=[r["step_ms"] for r in ranks],
+         median_step_ms=max(med(r["step_ms"][1:]) for r in ranks),
+         pa_step_ms=[[e["step_ms"] for e in x] for x in ex],
+         exposed_wait_ms=[[e["wait"] for e in x] for x in ex],
+         prefetch_ms=[[e["fetch"] for e in x] for x in ex],
+         pack_ms=[[e["pack"] for e in x] for x in ex],
+         publish_ms=[[e["publish"] for e in x] for x in ex],
+         bytes_fetched=[sum(e["bytes"] for e in x) for x in ex],
+         averaged=[r["steps"]["avg"] for r in ranks], plain=[r["steps"]["plain"] for r in ranks],
+         cyclegan={"ranks": 2, "steps": [c["steps"] for c in cyclegan],
+                   "err": [c["err"] for c in cyclegan], "center": [c["center"] for c in cyclegan],
+                   "seconds": [c["seconds"] for c in cyclegan],
+                   "phase_seconds": time.perf_counter() - t_cg},
+         seconds=time.perf_counter() - t_phase)
+
+
+HIER_RANKS, HIER_WORLD, HIER_STEPS, HIER_LR = 4, 2, 4, 0.1
+HIER_DEADLINE_S = 400
+HIER_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_hier"
+
+
+def _hier_rank(rank: int, specs) -> dict:
+    """One worker of the hier phase: ResNet-50 at 16 images a rank, SGD
+    with the hierarchical mean over 2 worlds x 2 ranks (gloo in a world),
+    the cross-world wire plain then bf16; the first step's mean against a
+    flat host all-reduce of the same gradients; the worlds' bits checked
+    after every step; then `examples/multislice_train` at world sizes 2
+    and 1."""
+    _worker_env(rank, specs)
+    import torch
+
+    from kungfu_tpu_torch import api
+    from kungfu_tpu_torch.base.ops import ReduceOp
+    from kungfu_tpu_torch.examples import multislice_train
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.ops.hierarchical import HierarchicalSGD
+    from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
+    from kungfu_tpu_torch.peer import get_default_peer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    device = initialize_device_plane(backend="gloo", peer=peer)
+    sess = peer.current_session()
+    gen = torch.Generator(device=device).manual_seed(700 + rank)
+    batch = (torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                         generator=gen),
+             torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+    out = {"rank": rank, "runs": {}}
+    for compress in ("", "bf16"):
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = list(model.parameters())
+        opt = HierarchicalSGD(torch.optim.SGD(params, lr=HIER_LR), world_size=HIER_WORLD,
+                              name=f"chip-hier-{compress or 'f32'}", compress=compress,
+                              device=device)
+        rec = {"step_ms": [], "split_ms": [], "losses": [], "in_sync": [], "wire_bytes": []}
+        for step in range(HIER_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = resnet_loss(model, batch)
+            loss.backward()
+            if step == 0:
+                g = torch.cat([p.grad.reshape(-1) for p in params])
+                sent0 = dict(sess.wire_bytes)
+                flat = api.all_reduce_array(g, name=f"flat-{compress}") / HIER_RANKS
+                rec["flat_wire_bytes"] = sum(sess.wire_bytes.values()) - sum(sent0.values())
+                abs_sum = api.all_reduce_array(g.abs(), name=f"abs-{compress}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            sent0 = dict(sess.wire_bytes)
+            torch.cuda.synchronize()
+            t_bwd = time.perf_counter()
+            opt.average_gradients()
+            rec["wire_bytes"].append(sum(sess.wire_bytes.values()) - sum(sent0.values()))
+            if step == 0:
+                hier = torch.cat([p.grad.reshape(-1) for p in params])
+                err = (hier.double() - flat.double()).abs()
+                if compress:
+                    bound = 2 * flat.abs().max().item() * 2.0 ** -8
+                    rec["first_step_worst_ratio"] = err.max().item() / bound
+                else:
+                    bound = 2 * (HIER_RANKS - 1) * HOST_F32_ULP * abs_sum.double() + HOST_F32_FLOOR
+                    rec["first_step_worst_ratio"] = (err / bound).max().item()
+                rec["first_step_max_abs_err"] = err.max().item()
+                del g, flat, abs_sum, hier, err
+            opt.base.step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["step_ms"].append((t1 - t0) * 1e3)
+            rec["split_ms"].append(dict(opt.last, backward_ms=(t_bwd - t0) * 1e3))
+            rec["losses"].append(loss.item())
+            # MIN and MAX all-reduces both equal to the local value: every
+            # world (and rank) holds the same bits
+            flat_p = torch.cat([p.detach().reshape(-1) for p in params])
+            lo = api.all_reduce_array(flat_p, ReduceOp.MIN, name=f"min-{compress}-{step}")
+            hi = api.all_reduce_array(flat_p, ReduceOp.MAX, name=f"max-{compress}-{step}")
+            rec["in_sync"].append(bool(torch.equal(lo, flat_p) and torch.equal(hi, flat_p)))
+            del flat_p, lo, hi
+        rec["leader"] = opt.reducer.leads()
+        out["runs"][compress or "f32"] = rec
+        del model, params, opt
+    out["multislice"] = {}
+    for ws in (HIER_WORLD, 1):  # 1: the reference's layout, the device plane up
+        t0 = time.perf_counter()
+        ms = multislice_train.main(["--world-size", str(ws), "--backend", "gloo"])
+        out["multislice"][str(ws)] = {"losses": ms["losses"],
+                                      "seconds": time.perf_counter() - t0}
+    sess.barrier(":hier:end")
+    return out
+
+
+def hier_worker(rank: int, _spawned, specs) -> None:
+    try:
+        (HIER_OUT / f"rank{rank}.json").write_text(json.dumps(_hier_rank(rank, specs)))
+    finally:
+        from kungfu_tpu_torch.parallel.distributed import shutdown_device_plane
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        shutdown_device_plane()
+        finalize_default_peer()
+
+
+def hier_phase(smi: str) -> None:
+    """The hierarchical all-reduce: 4 workers on card 0 as 2 worlds x 2
+    ranks (gloo within a world, the host plane across worlds) train
+    ResNet-50 with the cross-world wire in f32 and in bf16; then
+    `examples/multislice_train` at world sizes 2 and 1."""
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.runner.cli import free_ports
+
+    t_phase = time.perf_counter()
+    HIER_OUT.mkdir(parents=True, exist_ok=True)
+    for f in HIER_OUT.glob("*.json"):
+        f.unlink()
+    specs = [f"127.0.0.1:{p}" for p in free_ports(HIER_RANKS)]
+    spawn_world(hier_worker, HIER_RANKS, HIER_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((HIER_OUT / f"rank{r}.json").read_text()) for r in range(HIER_RANKS)]
+    for r in ranks:
+        for name, rec in r["runs"].items():
+            check(all(rec["in_sync"]) and len(rec["in_sync"]) == HIER_STEPS,
+                  f"hier {name} rank {r['rank']}: the worlds differ {rec['in_sync']}")
+            check(rec["first_step_worst_ratio"] <= 1.0,
+                  f"hier {name} rank {r['rank']}: the first step's mean is "
+                  f"{rec['first_step_worst_ratio']} of its bound from the flat mean")
+            check(all(math.isfinite(x) for x in rec["losses"]),
+                  f"hier {name} rank {r['rank']}: losses {rec['losses']}")
+    leaders = [r for r in ranks if r["runs"]["f32"]["leader"]]
+    check(len(leaders) == HIER_RANKS // HIER_WORLD, f"hier: {len(leaders)} leaders")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    runs = {}
+    for name in ("f32", "bf16"):
+        recs = [r["runs"][name] for r in ranks]
+        runs[name] = {
+            "step_ms": [x["step_ms"] for x in recs],
+            "median_step_ms": max(med(x["step_ms"][1:]) for x in recs),
+            "split_ms": [x["split_ms"] for x in recs],
+            "median_split_ms": {k: max(med([s[k] for s in x["split_ms"][1:]]) for x in recs)
+                                for k in ("backward_ms", "mean_ms", "walk_ms", "bcast_ms")},
+            "cross_wire_bytes_per_leader": [x["wire_bytes"][0] for x in recs if x["leader"]],
+            "flat_wire_bytes_per_rank": [x["flat_wire_bytes"] for x in recs],
+            "first_step_worst_ratio": [x["first_step_worst_ratio"] for x in recs],
+            "first_step_max_abs_err": [x["first_step_max_abs_err"] for x in recs],
+            "losses": recs[0]["losses"],
+        }
+    f32_wire = runs["f32"]["cross_wire_bytes_per_leader"]
+    bf16_wire = runs["bf16"]["cross_wire_bytes_per_leader"]
+    emit("hier", nvidia_smi=smi, ranks=HIER_RANKS, world_size=HIER_WORLD,
+         worlds=HIER_RANKS // HIER_WORLD, images_per_rank=OPT_BATCH, steps=HIER_STEPS,
+         runs=runs, bf16_over_f32_wire=[b / a for a, b in zip(f32_wire, bf16_wire)],
+         multislice={ws: {"losses_rank0": ranks[0]["multislice"][ws]["losses"],
+                          "seconds": [r["multislice"][ws]["seconds"] for r in ranks]}
+                     for ws in ranks[0]["multislice"]},
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
               file=sys.stderr)
@@ -2633,6 +3331,14 @@ def main() -> int:
     sma_launches = sma_phase(smi)
     async_phase(smi)
     elastic_phase(smi)
+    t_new = time.perf_counter()
+    checkpoint_phase(smi)
+    resize_bench_phase(smi)
+    pair_phase(smi)
+    hier_phase(smi)
+    emit("wall", seconds_before_checkpoint_phase=t_new - t_script,
+         seconds_of_checkpoint_to_hier=time.perf_counter() - t_new,
+         seconds_total=time.perf_counter() - t_script)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():
@@ -2663,5 +3369,16 @@ def main() -> int:
     return 0
 
 
+def _dispatch(argv) -> int:
+    if "--elastic-worker" in argv:
+        return elastic_worker()
+    if "--checkpoint-worker" in argv:
+        i = argv.index("--checkpoint-worker")
+        return checkpoint_worker(argv[i + 1], argv[i + 2], argv[i + 3] == "1")
+    if "--adaptive-worker" in argv:
+        return adaptive_worker()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(elastic_worker() if "--elastic-worker" in sys.argv[1:] else main())
+    sys.exit(_dispatch(sys.argv[1:]))

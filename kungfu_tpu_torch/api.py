@@ -15,7 +15,8 @@ tensor is staged by a copy that runs on, and the scheduler waits for its
 event before reading it. `sharded_update_session` builds the ZeRO-1
 update. `resize`, `propose_new_size`, `change_cluster` and
 `last_resize_phases` drive and time the elastic resize protocol of
-`Peer`. Not ported yet: latency probes and egress rates (ROADMAP item 1e).
+`Peer`; `trace_summary` totals the recorded spans. Not ported yet:
+latency probes and egress rates (ROADMAP item 1e).
 """
 
 from __future__ import annotations
@@ -388,6 +389,16 @@ def last_resize_phases() -> dict:
     """Per-phase ms breakdown of the most recent resize seen by this peer
     (wait_config / consensus / notify / update)."""
     return dict(get_default_peer().last_resize_phases)
+
+
+def trace_summary(prefix: str = "") -> dict:
+    """Total ms per hot-path span recorded in this process (transport
+    send/recv, collective walks, worker start-up, elastic state sync),
+    filtered by name prefix — parity: the reference compiles TRACE_SCOPE
+    into its GPU hot paths (srcs/cpp/include/kungfu/utils/trace.hpp)."""
+    from kungfu_tpu_torch.utils import trace
+
+    return trace.summary_ms(prefix)
 
 
 def change_cluster(progress: int):

@@ -97,6 +97,16 @@ def _host_leaves(leaves) -> Tuple[List[torch.Tensor], list]:
     return out, staged
 
 
+def pack_state(leaves) -> bytes:
+    """`pack_leaves` of the leaves, a card's staged through the api's
+    pinned buffers (numbers as numpy arrays of numpy's dtype)."""
+    host, staged = _host_leaves(leaves)
+    try:
+        return _pack_leaves(host)
+    finally:
+        api._release(staged)
+
+
 def _like(new: torch.Tensor, old):
     """`new` with the old leaf's dtype, shape and device (a numpy array
     for a numpy or Python-number leaf, as the reference gives back)."""
@@ -125,6 +135,15 @@ class ElasticState:
         # the latest state sync's seconds, blob bytes and root
         # (bytes 0: nothing to send, a world of one or a pure shrink)
         self.last_sync: dict = {}
+        # last checkpoint version this loop saved/restored; None until
+        # note_checkpoint() (the reference stamps it onto resize audit
+        # records, which wait for ROADMAP item 1e)
+        self._checkpoint_version: Optional[int] = None
+
+    def note_checkpoint(self, version: int) -> None:
+        """Tell the elastic loop which checkpoint version now covers
+        `progress`."""
+        self._checkpoint_version = int(version)
 
     def register_state(self, get_state: Callable, set_state: Callable) -> None:
         """Register training-state callbacks for joiner re-sync.
@@ -174,13 +193,7 @@ class ElasticState:
         # fresh world (startup / reload): root 0 = initializer broadcast
         root = int(root_out[0]) if int(root_out[0]) < big else 0
         leaves, unflatten = tree_flatten(self._get_state())
-        blob = b""
-        if sess.rank == root:
-            host, staged = _host_leaves(leaves)
-            try:
-                blob = _pack_leaves(host)
-            finally:
-                api._release(staged)
+        blob = pack_state(leaves) if sess.rank == root else b""
         got = sess.broadcast_bytes(blob, f"kungfu::statesync:{v}", root=root)
         self.last_sync.update(bytes=len(got), root=root)
         if sess.rank != root and self._set_state is not None:

@@ -16,9 +16,12 @@ across the (possibly just-resized) cluster every step; joining workers
 inherit a survivor's live parameters via the ElasticState re-sync
 broadcast. The elastic dataset resumes from the synced progress, so no
 sample is skipped or trained twice across resizes. The gradients are
-summed at the step's end (`api.all_reduce_array`), not by the torch
-frontend's hooks: a hook path is bound to one session epoch's scheduler,
-and a resize closes that session.
+summed at the step's end (`api.all_reduce_array`) under a name made of
+the synced progress, not by the torch frontend's S-SGD: its wire names
+count rounds in each process (the scheduler's rounds for the hooks, a
+per-process counter for its step-end path), so a joiner's first step
+cannot meet the survivors' and a grow hangs (ROADMAP Queue 3;
+tests/test_torch_port_checkpoint.py, a strict xfail).
 """
 
 from __future__ import annotations

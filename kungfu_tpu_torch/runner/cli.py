@@ -21,6 +21,7 @@ starts the port's. Not ported yet: the flight-recorder run dir
 from __future__ import annotations
 
 import argparse
+import random
 import signal
 import socket
 import sys
@@ -107,6 +108,45 @@ def infer_self_host(hosts: HostList) -> str:
 def parse_port_range(s: str):
     a, _, b = s.partition("-")
     return (int(a), int(b or a))
+
+
+def free_ports(n: int) -> List[int]:
+    """n localhost ports the kernel calls free (bound to 0, then closed),
+    none in kfrun's default 38000-38999."""
+    socks, out = [], []
+    try:
+        while len(out) < n:
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+            if not 38000 <= s.getsockname()[1] < 39000:
+                out.append(s.getsockname()[1])
+    finally:
+        for s in socks:
+            s.close()
+    return out
+
+
+def free_port_range(n: int) -> int:
+    """The first of n consecutive localhost ports that bind now, in
+    12000-19999 (outside kfrun's default 38000-38999 and the device
+    plane's 20000-29999): a `-port-range` for a cluster of n workers."""
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(12000, 20000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no free port range")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,7 +1,7 @@
 """Scoped tracer: named spans and recorded durations in a bounded ring.
 
 Port of `kungfu_tpu/utils/trace.py`, the names every host-plane module
-calls (`span`, `record`), over a ring of its own: the reference's
+calls (`span`, `record`, `summary_ms`), over a ring of its own: the reference's
 re-exports its telemetry tracer, whose Chrome-trace export and flight
 recorder are telemetry work (ROADMAP item 1e). Recording is always on:
 a span is two `perf_counter` reads and a deque append.
@@ -12,7 +12,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 MAX_EVENTS = 4096
 
@@ -64,6 +64,15 @@ def events(prefix: str = "") -> List[Tuple[str, float, float]]:
     """(name, start, duration) of the recorded events named `prefix*`."""
     with _lock:
         return [(e.name, e.start, e.duration) for e in _events if e.name.startswith(prefix)]
+
+
+def summary_ms(prefix: str = "") -> Dict[str, float]:
+    """Total duration per span name (ms) of the events named `prefix*`,
+    each total rounded to 0.1 ms."""
+    out: Dict[str, float] = {}
+    for name, _, duration in events(prefix):
+        out[name] = out.get(name, 0.0) + duration * 1e3
+    return {k: round(v, 1) for k, v in out.items()}
 
 
 def clear() -> None:

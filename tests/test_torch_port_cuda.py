@@ -943,3 +943,60 @@ def test_elastic_state_leaves_on_the_card_round_trip_through_pinned_buffers():
         assert back[k].device == state[k].device and back[k].dtype == state[k].dtype
         assert torch.equal(back[k], state[k]), k
     assert float(back["lr"]) == 0.25
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_of_card_tensors_restores_onto_the_card(tmp_path):
+    """The Checkpointer on card leaves (channels-last, bf16, int64 among
+    them): staged through the api's pinned pool, restored onto the card
+    with each leaf's dtype, shape and device, bit for bit; the window and
+    dump_final_variables's bytes as on the CPU."""
+    _need_card()
+    from kungfu_tpu_torch.base.serialize import pack_leaves
+    from kungfu_tpu_torch.elastic.checkpoint import Checkpointer, dump_final_variables
+    from kungfu_tpu_torch.elastic.state import tree_flatten
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def state(v):
+        return {"w": (torch.randn(8, 4, 3, 3, device="cuda", generator=gen) + v).to(
+                    memory_format=torch.channels_last),
+                "b": torch.randn(5, device="cuda", generator=gen).bfloat16(),
+                "n": torch.arange(6, device="cuda").reshape(2, 3) * v,
+                "step": torch.tensor([v])}
+
+    ckpt = Checkpointer(str(tmp_path / "ck"), max_to_keep=2, save_rank=None)
+    saved = {v: state(v) for v in (1, 2, 3)}
+    for v, s in saved.items():
+        assert ckpt.save(v, s)
+    assert ckpt.all_steps() == [2, 3]
+    like = {k: torch.zeros_like(x) for k, x in saved[3].items()}
+    back, start = ckpt.restore_or(like)
+    assert start == 3
+    for k, want in saved[3].items():
+        assert back[k].device == want.device and back[k].dtype == want.dtype
+        assert back[k].shape == want.shape and torch.equal(back[k], want), k
+    dump_final_variables(str(tmp_path / "v.kf"), saved[2])
+    leaves, _ = tree_flatten(saved[2])
+    assert (tmp_path / "v.kf").read_bytes() == pack_leaves([x.cpu() for x in leaves])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_pair_averagings_f32_average_on_the_card_is_the_cpu_formula(dtype):
+    """PairAveraging's 0.5 (p + o) at f32, rounded back to the parameter's
+    dtype, on the card bit for bit the same formula on the CPU."""
+    _need_card()
+    from kungfu_tpu_torch.optimizers.pair_averaging import PairAveraging
+
+    gen = torch.Generator().manual_seed(5)
+    p = (torch.randn(4097, generator=gen) * 10.0 ** torch.randint(-3, 3, (4097,),
+                                                                  generator=gen)).to(dtype)
+    o = (torch.randn(4097, generator=gen) * 10.0 ** torch.randint(-3, 3, (4097,),
+                                                                  generator=gen)).to(dtype)
+    want = (0.5 * (p.float() + o.float())).to(dtype)
+    pa = PairAveraging.__new__(PairAveraging)
+    leaves = [p.cuda()]
+    pa._average(leaves, [o])  # the fetched leaf arrives on the host
+    assert leaves[0].device.type == "cuda" and leaves[0].dtype == dtype
+    assert torch.equal(leaves[0].cpu(), want)

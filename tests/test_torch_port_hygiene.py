@@ -37,7 +37,11 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "runner.cli", "runner.monitored", "runner.standby", "runner.watch",
                       "runner.distribute", "cmd", "elastic", "elastic.configserver",
                       "elastic.schedule", "elastic.dataset", "elastic.state",
-                      "examples.elastic_train")
+                      "examples.elastic_train",
+                      # checkpoints, PairAveraging, the hierarchical all-reduce
+                      "elastic.checkpoint", "examples.adaptive_batch", "bench_resize",
+                      "optimizers.pair_averaging", "examples.cyclegan_pair",
+                      "ops.hierarchical", "examples.multislice_train")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -101,7 +105,11 @@ def test_the_frontend_subpackage_leaves_resolve_device_working():
 
 def _entry_points():
     from kungfu_tpu_torch import bench, graft_entry
+    from kungfu_tpu_torch import bench_resize
+    from kungfu_tpu_torch.elastic.checkpoint import Checkpointer
+    from kungfu_tpu_torch.examples import adaptive_batch, cyclegan_pair, multislice_train
     from kungfu_tpu_torch.examples import bert_sma, bert_ssgd, elastic_train, mnist_slp
+    from kungfu_tpu_torch.ops.hierarchical import make_hier_train_step
     from kungfu_tpu_torch.monitor.noise_scale import gns_init
     from kungfu_tpu_torch.models.mlp import init_mlp
     from kungfu_tpu_torch.models.resnet import init_resnet, resnet18_thin
@@ -125,6 +133,13 @@ def _entry_points():
         "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
         "gns_init": lambda: gns_init(),
         "elastic_train.main": lambda: elastic_train.main(["--samples", "64"]),
+        "Checkpointer": lambda: Checkpointer("unused-checkpoint-dir"),
+        "adaptive_batch.main": lambda: adaptive_batch.main(["--steps", "1"]),
+        "bench_resize.main": lambda: bench_resize.main([]),
+        "cyclegan_pair.main": lambda: cyclegan_pair.main(["--steps", "1"]),
+        "multislice_train.main": lambda: multislice_train.main(["--steps", "1"]),
+        "make_hier_train_step": lambda: make_hier_train_step(
+            lambda b: b, torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)),
     }
 
 
@@ -132,7 +147,10 @@ def _entry_points():
                                   "initialize_device_plane", "make_mesh", "make_mesh_2d",
                                   "bert_ssgd.main", "bert_sma.main", "init_resnet", "init_mlp",
                                   "mnist_slp.main", "bench.main", "graft_entry.entry",
-                                  "dryrun_multichip", "gns_init", "elastic_train.main"])
+                                  "dryrun_multichip", "gns_init", "elastic_train.main",
+                                  "Checkpointer", "adaptive_batch.main", "bench_resize.main",
+                                  "cyclegan_pair.main", "multislice_train.main",
+                                  "make_hier_train_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
