@@ -1772,8 +1772,11 @@ def _worker_env(rank: int, specs, **knobs) -> None:
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     for knob in ("KF_CONFIG_ALGO", "KF_CONFIG_WIRE", "KF_CONFIG_SHM", "KF_CONFIG_ASYNC",
                  "KF_CONFIG_ZERO", "KF_CONFIG_SEGMENT_MIN_BYTES",
-                 "KF_CONFIG_GROUP_BUCKET_BYTES"):
+                 "KF_CONFIG_GROUP_BUCKET_BYTES", "KF_CONFIG_ENABLE_MONITORING",
+                 "KF_TRACE_BUFFER"):
         os.environ.pop(knob, None)
+    for knob in [k for k in os.environ if k.startswith("KF_TELEMETRY")]:
+        os.environ.pop(knob)
     os.environ.update({k: str(v) for k, v in knobs.items()})
 
 
@@ -2329,6 +2332,285 @@ def async_phase(smi: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+TM_RANKS = 4
+TM_STEPS = 8
+TM_DEADLINE_S = 400
+TM_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_tm"
+TM_FEATURES = "metrics,trace,audit"
+# run -> (the optimizer, telemetry on), in this order, each a cluster
+# epoch of its own: S-SGD off and on in turns (off, on, off, on) for the
+# overhead, then ZeroSGD with telemetry on
+TM_RUNS = (("off", "ssgd", False), ("on", "ssgd", True), ("off2", "ssgd", False),
+           ("on2", "ssgd", True), ("zero", "zero", True))
+TM_WARM = 2  # steps of a run left out of its median: the step-end path, then registration
+TM_ENDPOINTS = ("/metrics", "/trace", "/audit")
+
+
+def _ring_bytes(n: int, k: int, rank: int) -> int:
+    """f32 payload bytes `rank` sends in one segmented ring all-reduce of
+    n elements over k ranks: its segments of the reduce-scatter and the
+    all-gather, empty segments skipped (the hostnet phase's 2 (k - 1) / k
+    of 4n, exact)."""
+    from kungfu_tpu_torch.plan import topology as topo
+
+    sched = topo.gen_segmented_schedule(list(range(k)), rank)
+    bounds = topo.segment_bounds(n, k)
+    return 4 * sum(bounds[snd][1] - bounds[snd][0]
+                   for snd, _ in tuple(sched.rs_steps) + tuple(sched.ag_steps))
+
+
+def _scrape(specs) -> list:
+    """Every rank's /metrics, /trace and /audit over HTTP (peer port +
+    10000): per rank and endpoint, the body, its bytes and the ms it took."""
+    import urllib.request
+
+    out = []
+    for spec in specs:
+        port = int(spec.rsplit(":", 1)[1]) + 10000
+        got = {}
+        for ep in TM_ENDPOINTS:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{ep}", timeout=30) as r:
+                body = r.read().decode()
+            got[ep] = {"body": body, "bytes": len(body), "ms": (time.perf_counter() - t0) * 1e3}
+        out.append(got)
+    return out
+
+
+def _read_scrape(pages) -> list:
+    """What the phase's gates read from one scrape of every rank, the
+    /metrics page parsed by the port's promparse."""
+    from kungfu_tpu_torch.telemetry import promparse
+
+    out = []
+    for got in pages:
+        samples = promparse.parse_text(got["/metrics"]["body"])
+        wire = [s for s in samples if s.name == "kungfu_collective_wire_bytes_total"]
+        trace = json.loads(got["/trace"]["body"])
+        walks = [e for e in trace["traceEvents"] if e["name"] == "sched.walk"]
+        out.append({
+            "wire_ring_raw": sum(s.value for s in wire
+                                 if dict(s.labels) == {"collective": "raw",
+                                                       "strategy": "RING_SEGMENTED",
+                                                       "codec": "off"}),
+            "wire_all": sum(s.value for s in wire),
+            "egress": sum(s.value for s in samples if s.name == "kungfu_egress_bytes_total"),
+            "sched": {name: promparse.sample_value(samples, name)
+                      for name in ("kungfu_scheduler_queued_buckets",
+                                   "kungfu_scheduler_overlap_seconds_total",
+                                   "kungfu_scheduler_flush_wait_seconds")},
+            "zero_state_bytes": promparse.sample_value(samples,
+                                                       "kungfu_sharded_update_state_bytes"),
+            "families": len({s.name for s in samples}),
+            "trace_events": len(trace["traceEvents"]),
+            "sched_walks_with_step": sum(1 for e in walks if "step" in e.get("args", {})),
+            "audit_kinds": [r["kind"] for r in json.loads(got["/audit"]["body"])],
+            "ms": {ep: got[ep]["ms"] for ep in TM_ENDPOINTS},
+            "bytes": {ep: got[ep]["bytes"] for ep in TM_ENDPOINTS},
+        })
+    return out
+
+
+def _telemetry_rank(rank: int, specs) -> dict:
+    """One worker of the telemetry phase: ResNet-50 at 16 images a rank,
+    TM_STEPS SGD steps of each run of TM_RUNS from the same parameters
+    and batches, each in a cluster epoch of its own; telemetry goes on or
+    off (the environment, then a fresh epoch) before each run, and this
+    worker's endpoint comes up with the first run that has it on. After
+    each step every rank meets in a barrier, rank 0 scrapes every rank's
+    endpoint when telemetry is on, and a second barrier releases the next
+    step."""
+    _worker_env(rank, specs, KF_CONFIG_ASYNC="on", KF_CONFIG_ZERO="on", KF_CONFIG_WIRE="off",
+                KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES=0)
+    import torch
+
+    from kungfu_tpu_torch import api, resolve_device
+    from kungfu_tpu_torch import torch as kf
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.peer import get_default_peer
+    from kungfu_tpu_torch.telemetry import config as tconfig
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    device = resolve_device()
+    gen = torch.Generator(device=device).manual_seed(700 + rank)
+    batches = [(torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                            generator=gen),
+                torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+               for _ in range(TM_STEPS)]
+    out = {"rank": rank, "served_before": peer.metrics_server is not None, "runs": {}}
+    for run, kind, on in TM_RUNS:
+        if on:
+            os.environ["KF_TELEMETRY"] = TM_FEATURES
+        else:
+            os.environ.pop("KF_TELEMETRY", None)
+        tconfig.refresh(None)
+        if on and peer.metrics_server is None:
+            peer._start_telemetry_server()
+        peer.cluster_version += 1  # a fresh epoch: its session reads the telemetry gate
+        peer._update_to(peer.config.peers)
+        sess = peer.current_session()
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = list(model.parameters())
+        if kind == "zero":
+            opt = kf.ZeroSGDOptimizer(model, lr=ASYNC_LR, name=f"tm{run}")
+        else:
+            opt = kf.SynchronousSGDOptimizer(torch.optim.SGD(params, lr=ASYNC_LR),
+                                             name=f"tm{run}")
+        rec = {"digests": [], "step_ms": [], "scrapes": [], "wire_ring_raw": []}
+        for step in range(TM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            resnet_loss(model, batches[step]).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["digests"].append(_digest(torch.cat([p.detach().reshape(-1) for p in params])))
+            rec["wire_ring_raw"].append(sess.wire_bytes.get(("raw", "RING_SEGMENTED", "off"), 0))
+            sess.barrier(f":tm:{run}:{step}:a")
+            if rank == 0 and on:
+                rec["scrapes"].append(_read_scrape(_scrape(specs)))
+            sess.barrier(f":tm:{run}:{step}:b")
+        if kind == "zero":
+            rec.update(mode=opt._mode, state_bytes=opt.state_bytes())
+        else:
+            rec["hooks"] = opt._hooks_installed
+        sched = sess.scheduler()
+        rec["unit_elems"] = [b // 4 for _, b in sorted(sched._unit_bytes.items())]
+        rec["stats"] = sched.stats()
+        rec["agreed"] = sess.bytes_consensus("".join(rec["digests"]).encode(), f"tm:{run}")
+        if run == "on":
+            rec["latencies"] = api.get_peer_latencies().tolist()
+            rec["tree"] = api.optimized_tree()
+        out["runs"][run] = rec
+    out["served_after"] = peer.metrics_server is not None
+    sess.barrier(":tm:end")
+    return out
+
+
+def telemetry_worker(rank: int, _spawned, specs) -> None:
+    try:
+        out = _telemetry_rank(rank, specs)  # sets the engine knobs before the engine's import
+        (TM_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def telemetry_phase(smi: str) -> None:
+    """The telemetry plane on the async hook path: 4 workers on card 0 train
+    ResNet-50 by S-SGD with telemetry off and on in turns (on:
+    KF_TELEMETRY=metrics,trace,audit, every worker serving /metrics,
+    /trace and /audit), then by ZeroSGD with it on. Gates: every S-SGD run
+    ends bitwise equal to the others; each rank's ring bytes in
+    kungfu_collective_wire_bytes_total are the segmented ring's exact
+    bytes for the scheduler's buckets, and its egress bytes at least its
+    wire bytes; the scheduler's families are there and non-negative;
+    ZeRO's state-byte gauge is its own count; the traces hold sched.walk
+    spans stamped with their step; the latencies and the optimized tree
+    are sound and agreed."""
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.runner.cli import free_port_range
+
+    t_phase = time.perf_counter()
+    k = TM_RANKS
+    TM_OUT.mkdir(parents=True, exist_ok=True)
+    for f in TM_OUT.glob("*.json"):
+        f.unlink()
+    base = free_port_range(k)  # telemetry on port + 10000: 22000-29999
+    specs = [f"127.0.0.1:{base + i}" for i in range(k)]
+    spawn_world(telemetry_worker, k, TM_DEADLINE_S, args=(specs,))
+    ranks = [json.loads((TM_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+    runs = [run for run, _, _ in TM_RUNS]
+    ssgd = [run for run, kind, _ in TM_RUNS if kind == "ssgd"]
+    observed = [run for run, _, on in TM_RUNS if on]
+    check(not any(r["served_before"] for r in ranks) and all(r["served_after"] for r in ranks),
+          "telemetry: a worker served before telemetry went on, or not after")
+    for run in runs:
+        check(all(r["runs"][run]["agreed"] for r in ranks)
+              and len({tuple(r["runs"][run]["digests"]) for r in ranks}) == 1,
+              f"telemetry {run}: the ranks' parameters differ")
+    check(all(len({tuple(r["runs"][run]["digests"]) for run in ssgd}) == 1 for r in ranks),
+          "telemetry: the parameters with telemetry on differ from those with it off")
+    check(all(r["runs"][run]["hooks"] for r in ranks for run in ssgd)
+          and all(r["runs"]["zero"]["mode"] == "sharded" for r in ranks),
+          "telemetry: a run did not take the hook path or the sharded update")
+    scrapes = {run: ranks[0]["runs"][run]["scrapes"] for run in observed}
+    check(all(len(v) == TM_STEPS for v in scrapes.values()), "telemetry: a scrape is missing")
+    units = ranks[0]["runs"]["on"]["unit_elems"]
+    check(all(r["runs"][run]["unit_elems"] == units for r in ranks for run in ssgd),
+          "telemetry: the bucket plans differ between ranks or runs")
+    wire = {}
+    for r in range(k):
+        want = sum(_ring_bytes(n, k, r) for n in units)
+        wire[r] = {"per_step_want": want}
+        for run in ("on", "on2"):
+            got = [s[r]["wire_ring_raw"] for s in scrapes[run]]
+            own = ranks[r]["runs"][run]["wire_ring_raw"]
+            # step 0 takes the step-end path; later steps walk the scheduler's buckets
+            deltas = [b - a for a, b in zip(got, got[1:])]
+            own_deltas = [b - a for a, b in zip(own, own[1:])]
+            wire[r][run] = deltas
+            check(deltas == own_deltas == [want] * (TM_STEPS - 1),
+                  f"telemetry {run} rank {r}: ring wire bytes a step {deltas} (the session's "
+                  f"own count {own_deltas}), the formula gives {want}")
+    for run in observed:
+        for step, scrape in enumerate(scrapes[run]):
+            for r, got in enumerate(scrape):
+                check(got["egress"] >= got["wire_all"] > 0,
+                      f"telemetry {run} step {step} rank {r}: egress {got['egress']} B "
+                      f"under the wire's {got['wire_all']} B")
+                if step or run == "zero":
+                    check(all(v is not None and v >= 0 for v in got["sched"].values()),
+                          f"telemetry {run} step {step} rank {r}: scheduler families "
+                          f"{got['sched']}")
+    for r, got in enumerate(scrapes["zero"][-1]):
+        check(got["zero_state_bytes"] == ranks[r]["runs"]["zero"]["state_bytes"],
+              f"telemetry rank {r}: kungfu_sharded_update_state_bytes "
+              f"{got['zero_state_bytes']}, ZeRO counts {ranks[r]['runs']['zero']['state_bytes']}")
+    check(all(got["sched_walks_with_step"] > 0 for got in scrapes["on"][-1]),
+          "telemetry: a trace holds no sched.walk span with its step")
+    for r in ranks:
+        lat = r["runs"]["on"]["latencies"]
+        check(lat[r["rank"]] == 0.0 and all(0 < v < math.inf for i, v in enumerate(lat)
+                                            if i != r["rank"]),
+              f"telemetry rank {r['rank']}: latencies {lat}")
+    trees = {json.dumps(r["runs"]["on"]["tree"]) for r in ranks}
+    check(len(trees) == 1, f"telemetry: the ranks' optimized trees differ: {trees}")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    # a run's step: the slowest rank's median over its steps past TM_WARM;
+    # off and on pool their two runs
+    median = {run: max(med(r["runs"][run]["step_ms"][TM_WARM:]) for r in ranks) for run in runs}
+    pooled = {on: max(med([x for run in ssgd if (run in observed) == on
+                           for x in r["runs"][run]["step_ms"][TM_WARM:]]) for r in ranks)
+              for on in (False, True)}
+    last = scrapes["on2"][-1]
+    emit("telemetry", nvidia_smi=smi, ranks=k, images_per_rank=OPT_BATCH, steps=TM_STEPS,
+         features=TM_FEATURES, order=runs,
+         step_ms={run: [r["runs"][run]["step_ms"] for r in ranks] for run in runs},
+         median_step_ms=median, median_off_ms=pooled[False], median_on_ms=pooled[True],
+         overhead=pooled[True] / pooled[False] - 1,
+         scrape_ms={ep: [[s[r]["ms"][ep] for r in range(k)] for run in observed
+                         for s in scrapes[run]] for ep in TM_ENDPOINTS},
+         body_bytes={ep: [got["bytes"][ep] for got in last] for ep in TM_ENDPOINTS},
+         families=[got["families"] for got in last],
+         trace_events=[got["trace_events"] for got in last],
+         audit_kinds=[got["audit_kinds"] for got in last],
+         buckets=len(units), wire=wire,
+         zero_state_bytes=[r["runs"]["zero"]["state_bytes"] for r in ranks],
+         stats={run: [r["runs"][run]["stats"] for r in ranks] for run in runs},
+         tree=ranks[0]["runs"]["on"]["tree"], latencies=[r["runs"]["on"]["latencies"]
+                                                         for r in ranks],
+         seconds=time.perf_counter() - t_phase)
+
+
 ELASTIC_SCHEDULE = "2:3,4:3,2:3"  # workers: steps
 ELASTIC_SIZES = [2, 2, 2, 4, 4, 4, 2, 2, 2]
 ELASTIC_BATCH = 16  # images a rank a step, 224x224
@@ -2477,7 +2759,8 @@ def elastic_worker() -> int:
                 t_end = time.perf_counter()
                 es.end(ds.cluster_delta(size))
                 rec["end_ms"] = (time.perf_counter() - t_end) * 1e3
-        out.update(stop_reason=es.stop_reason, final_progress=es.progress)
+        out.update(stop_reason=es.stop_reason, final_progress=es.progress,
+                   resize_audit=api.resize_audit())
     finally:
         ELASTIC_OUT.mkdir(parents=True, exist_ok=True)
         (ELASTIC_OUT / f"{spec.replace(':', '_')}.json").write_text(json.dumps(out))
@@ -2498,6 +2781,7 @@ def elastic_phase(smi: str) -> None:
         f.unlink()
     base, runner = free_port_range(4), free_ports(1)[0]
     env = {k: v for k, v in os.environ.items() if not k.startswith("KF_")}
+    env["KF_TELEMETRY"] = "audit"  # each resize on the record (workers serve on port + 10000)
     here = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "kungfu_tpu_torch.runner.cli", "-np", "2", "-H", "127.0.0.1:4",
            "-w", "-builtin-config-port", "0", "-port-range", f"{base}-{base + 3}",
@@ -2546,6 +2830,24 @@ def elastic_phase(smi: str) -> None:
         check(workers[s]["stop_reason"] == "finished" and workers[s]["final_progress"] == total,
               f"elastic: survivor {s} stopped {workers[s]['stop_reason']!r} at "
               f"{workers[s]['final_progress']}")
+    # the audit log: one record per resize a survivor took part in, its
+    # phases those the survivor timed (its first step of each new epoch)
+    audit_check = {}
+    for s in first:
+        recs = workers[s]["resize_audit"]
+        phases = [rec["resize_phases"] for rec in workers[s]["steps"]
+                  if "resize_phases" in rec][1:]
+        sizes_seen = [(a.get("old_size"), a.get("new_size")) for a in recs]
+        check(sizes_seen == [(2, 4), (4, 2)] and [a.get("phases_ms") for a in recs] == phases
+              and all(a.get("trigger") == "config_server" for a in recs),
+              f"elastic: survivor {s}'s resize audit {recs} is not its resizes 2->4, 4->2 "
+              f"with phases {phases}")
+        audit_check[s] = {"sizes": sizes_seen, "duration_ms": [a.get("duration_ms")
+                                                               for a in recs]}
+    for j in joiners:
+        recs = workers[j]["resize_audit"]
+        check([(a.get("old_size"), a.get("new_size"), a.get("detached")) for a in recs]
+              == [(4, 2, True)], f"elastic: joiner {j}'s resize audit {recs}")
     # no sample skipped or trained twice: each step's global batch is the
     # next stretch of the dataset's order
     import numpy as np
@@ -2606,7 +2908,8 @@ def elastic_phase(smi: str) -> None:
                        for i in sorted(steps) if sizes[i] == n] for n in sorted(set(sizes))},
          end_ms=[[r.get("end_ms") for r in sorted(steps[i], key=lambda r: r["rank"])]
                  for i in sorted(steps)],
-         kfrun_seconds=kfrun_s, seconds=time.perf_counter() - t_phase)
+         resize_audit=audit_check, kfrun_seconds=kfrun_s,
+         seconds=time.perf_counter() - t_phase)
 
 
 CKPT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
@@ -3330,6 +3633,7 @@ def main() -> int:
     hostnet_phase(smi, host["walks"])
     sma_launches = sma_phase(smi)
     async_phase(smi)
+    telemetry_phase(smi)
     elastic_phase(smi)
     t_new = time.perf_counter()
     checkpoint_phase(smi)

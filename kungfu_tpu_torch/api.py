@@ -15,8 +15,13 @@ tensor is staged by a copy that runs on, and the scheduler waits for its
 event before reading it. `sharded_update_session` builds the ZeRO-1
 update. `resize`, `propose_new_size`, `change_cluster` and
 `last_resize_phases` drive and time the elastic resize protocol of
-`Peer`; `trace_summary` totals the recorded spans. Not ported yet:
-latency probes and egress rates (ROADMAP item 1e).
+`Peer`. The telemetry surface: `trace_summary` totals the recorded
+spans, `telemetry_dump`, `metrics_text` and `resize_audit` read the
+process's telemetry, `get_peer_latencies`, `optimized_tree` and
+`egress_rates` the network monitors; `monitored_all_reduce_array`,
+`check_interference`, `active_strategy`, `active_candidate` and
+`calc_stats` drive and read the adaptive strategy. Not ported yet: the
+measured re-plan round `check_replan` (ROADMAP item 1e-ii).
 """
 
 from __future__ import annotations
@@ -401,9 +406,123 @@ def trace_summary(prefix: str = "") -> dict:
     return trace.summary_ms(prefix)
 
 
+def telemetry_dump(prefix: str = "") -> dict:
+    """Snapshot of the whole telemetry subsystem: Prometheus metrics
+    text, Chrome-trace JSON, resize audit records and a per-span ms
+    summary (see kungfu_tpu_torch.telemetry.dump)."""
+    from kungfu_tpu_torch import telemetry
+
+    return telemetry.dump(prefix)
+
+
+def resize_audit() -> list:
+    """The elastic resize audit records of this process, as dicts
+    (old/new cluster, trigger, per-phase durations, progress)."""
+    from kungfu_tpu_torch.telemetry import audit
+
+    return [r.to_json() for r in audit.records(kind="resize")]
+
+
+def metrics_text() -> str:
+    """Prometheus text exposition of the process metrics registry — the
+    same body the per-worker /metrics endpoint serves."""
+    from kungfu_tpu_torch.telemetry import metrics
+
+    return metrics.render()
+
+
 def change_cluster(progress: int):
     """Reload-mode resize; returns (changed, detached_all)."""
     return get_default_peer().change_cluster(progress)
+
+
+def monitored_all_reduce_array(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                               name: str = "user") -> torch.Tensor:
+    """Host-plane allreduce with throughput accounting feeding the
+    adaptive controller (parity: MonitoredAllReduce op)."""
+    (src,) = _stage([x])
+    dst = _host(x, copy=False)
+    w = Workspace(send=src[0], recv=dst[0], op=op, name=f"kungfu::monitored::{name}")
+    try:
+        get_default_peer().current_session().monitored_all_reduce(w)
+    finally:
+        _release([src])
+    return _back(x, *dst)
+
+
+def check_interference() -> bool:
+    """Vote on interference; True if the cluster switched strategy
+    (parity: check_interference, session/adaptiveStrategies.go:61-121).
+    Call on every peer at the same step boundary."""
+    return get_default_peer().current_session().check_interference()
+
+
+def active_strategy():
+    """The running adaptive candidate's Strategy (the enum), or None
+    under a set_tree override."""
+    return get_default_peer().current_session().active_strategy()
+
+
+def active_candidate() -> str:
+    """Display name of the running adaptive candidate: the strategy,
+    suffixed with "/<codec>" when a wire codec is active; "SET_TREE"
+    under a set_tree override."""
+    return get_default_peer().current_session().active_candidate_name()
+
+
+def calc_stats() -> dict:
+    """Per-strategy throughput stats (parity: calc_stats/log_stats ops)."""
+    return get_default_peer().current_session().calc_stats()
+
+
+def get_peer_latencies(samples: int = 3) -> torch.Tensor:
+    """RTT seconds to every peer (self = 0, unreachable = +inf), a
+    float64 CPU tensor in rank order; parity: GetPeerLatencies op."""
+    from kungfu_tpu_torch.monitor.latency import probe_peer_latencies
+
+    p = get_default_peer()
+    sess = p.current_session()
+    return torch.from_numpy(probe_peer_latencies(p.client, list(sess.peers), sess.rank,
+                                                 samples))
+
+
+_latency_probe_seq: dict = {}  # cluster version -> probes this epoch
+
+
+def optimized_tree(samples: int = 3) -> list:
+    """Probe latencies, all-gather the rows into the full matrix, and
+    return its MST's father array — identical on every peer (a
+    deterministic MST over the same matrix), ready for set_tree. Call on
+    every peer at the same step boundary."""
+    from kungfu_tpu_torch.monitor.latency import latency_matrix_from_rows
+
+    peer = get_default_peer()
+    sess = peer.current_session()
+    n = sess.size
+    row = get_peer_latencies(samples)
+    recv = torch.zeros(n * n, dtype=torch.float64)
+    # back-to-back probes must not share a rendezvous name. The count is
+    # PER CLUSTER VERSION, not process-lifetime: a joiner's process
+    # starts at 0 while survivors have probed for epochs, and only within
+    # one epoch do peers call in identical program order
+    v = peer.cluster_version
+    seq = _latency_probe_seq.get(v, 0)
+    _latency_probe_seq[v] = seq + 1
+    sess.all_gather(Workspace(send=row, recv=recv, op=ReduceOp.SUM,
+                              name=f"kungfu::latency:v{v}:{seq}"))
+    matrix = latency_matrix_from_rows(list(recv.numpy().reshape(n, n)))
+    return minimum_spanning_tree(matrix)
+
+
+def egress_rates() -> torch.Tensor:
+    """Per-peer egress rates (bytes/s) in rank order, a float64 CPU
+    tensor (parity: EgressRates op, ops/cpu/monitoring.cpp:5-22). All
+    zeros unless monitoring is on (KF_CONFIG_ENABLE_MONITORING truthy or
+    KF_TELEMETRY=metrics)."""
+    from kungfu_tpu_torch.monitor.net import get_monitor
+
+    sess = get_default_peer().current_session()
+    return torch.tensor(get_monitor().egress_rates(list(sess.peers)), dtype=torch.float64)
 
 
 def minimum_spanning_tree(weights) -> list:

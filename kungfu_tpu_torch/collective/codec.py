@@ -17,7 +17,7 @@ from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.base.dtype import DType
 from kungfu_tpu_torch.base.ops import QWire, decode_wire
 from kungfu_tpu_torch.base.workspace import Workspace
-from kungfu_tpu_torch.telemetry import log
+from kungfu_tpu_torch.telemetry import audit, log
 from kungfu_tpu_torch.utils.pool import get_buffer_pool
 
 # f32 allreduce payloads travel the transport as bf16/f16 (or block-scaled
@@ -38,6 +38,14 @@ def wire_override() -> str:
     unset/empty to "off"."""
     return knobs.get("KF_CONFIG_WIRE")
 
+
+
+def dtype_str(dt: torch.dtype) -> str:
+    """numpy's `dtype.str` of a torch dtype, as the reference's records
+    hold it (bf16 is ml_dtypes' two-byte void, ``<V2``)."""
+    if dt == torch.bfloat16:
+        return "<V2"
+    return DType.from_torch(dt).to_numpy().str
 
 class DeferredDecode:
     """Handle to a compressed segmented walk's all-gather wire buffer,
@@ -95,6 +103,24 @@ class WireCodec:
             return self.wire_mode
         return self._candidates[self.adaptive.active][1]
 
+    def _codec_bypass(self, reason: str, w: Workspace) -> None:
+        """Audit (once per (reason, dtype) per session epoch) that a
+        workspace bypassed an enabled codec — exact semantics kept for
+        consensus lanes, integer payloads and tiny residuals."""
+        dtype = dtype_str(w.send.dtype)
+        key = (reason, dtype)
+        if key in self._codec_bypass_seen:
+            return
+        self._codec_bypass_seen.add(key)
+        audit.record_event(
+            "wire_codec_bypass",
+            peer=str(self.self_id),
+            reason=reason,
+            dtype=dtype,
+            name=w.name,
+            nbytes=int(w.recv.nbytes),
+        )
+
     def _wire_codec_for(self, w: Workspace):
         """Codec decision for one allreduce workspace: a ``DType`` (2-byte
         codec), a :class:`QWire` (block-scaled int8/int4), or None (raw).
@@ -102,7 +128,8 @@ class WireCodec:
         MUST depend only on cluster-agreed inputs — the resolved wire mode
         and workspace properties identical on every peer — because it
         decides the byte count of every message in the walk. Non-f32
-        payloads and sub-WIRE_MIN_BYTES residuals bypass, never an error;
+        payloads and sub-WIRE_MIN_BYTES residuals bypass with an audit
+        event, never an error;
         an UNKNOWN mode warns loudly and runs exact."""
         mode = self._active_wire_mode()
         if mode != self._ef_mode:
@@ -113,8 +140,10 @@ class WireCodec:
         if mode == "off":
             return None
         if w.send.dtype != torch.float32:
+            self._codec_bypass("non_f32", w)
             return None
         if w.recv.nbytes < self.WIRE_MIN_BYTES:
+            self._codec_bypass("below_min_bytes", w)
             return None
         bits = _WIRE_Q_BITS.get(mode)
         if bits is not None:

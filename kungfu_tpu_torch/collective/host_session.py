@@ -19,10 +19,19 @@ Buffers are one-dimensional contiguous torch CPU tensors (pinned where
 they stage a CUDA tensor). `wire_bytes` counts the payload bytes this
 peer sent into walks, by (collective, strategy, codec).
 
+Telemetry, as the reference's: every public collective is a span, and
+with metrics on (resolved once per session epoch) a latency-histogram
+observation; the walks count their wire bytes into
+`kungfu_collective_wire_bytes_total` and the codec's savings; the
+active ring position and successor, the two-level role and the wire
+mode are gauges (a flat, rank-order plan until the measured re-plan is
+ported); strategy and precision switches, codec bypasses and the first
+segmented fallback of an epoch are audit events.
+
 The async scheduler (`scheduler()`, `collective/scheduler.py`) lives
 as long as the session epoch. Not ported yet: the measured-topology
-re-plan and demotion rounds and the telemetry hooks (metrics, audit,
-decision ledger; item 1e); the collective-order sentinel of
+re-plan and demotion rounds, the decision ledger and the link table
+(ROADMAP item 1e-ii); the collective-order sentinel of
 KF_DEBUG_PROTOCOL. The knobs that govern them are still resolved and
 agreed between peers (`engine_knobs`), so a port peer and a reference
 peer agree on every rendezvous name.
@@ -44,6 +53,7 @@ from kungfu_tpu_torch.collective import strategies as st
 from kungfu_tpu_torch.collective.adaptive import AdaptiveState
 from kungfu_tpu_torch.collective.codec import WIRE_MODES, WireCodec, wire_override
 from kungfu_tpu_torch.collective.pipeline import GroupFusion
+from kungfu_tpu_torch.collective.profiler import SpanSampler
 from kungfu_tpu_torch.collective.walks import (
     CHUNK_BYTES,
     DEFAULT_TIMEOUT,
@@ -55,7 +65,9 @@ from kungfu_tpu_torch.collective.walks import (
 from kungfu_tpu_torch.plan import topology as topo
 from kungfu_tpu_torch.plan.graph import Graph
 from kungfu_tpu_torch.plan.peer import PeerID, PeerList
-from kungfu_tpu_torch.telemetry import log
+from kungfu_tpu_torch.telemetry import audit, log
+from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.transport.client import Client
 from kungfu_tpu_torch.transport.handlers import CollectiveEndpoint
 from kungfu_tpu_torch.transport.message import ConnType, nbytes_of
@@ -67,10 +79,11 @@ _protowatch_warned = [False]
 
 
 class _CollectiveScope:
-    """Span around one public collective, labelling the wire bytes its
-    walks send with the collective's kind."""
+    """Span (and, with metrics on, a latency-histogram observation)
+    around one public collective, labelling the wire bytes its walks send
+    with the collective's kind."""
 
-    __slots__ = ("_sess", "_kind", "_span", "_prev_kind")
+    __slots__ = ("_sess", "_kind", "_span", "_t0", "_prev_kind")
 
     def __init__(self, sess: "HostSession", kind: str, nbytes: int):
         self._sess = sess
@@ -78,6 +91,7 @@ class _CollectiveScope:
         self._span = trace.span(f"collective.{kind}", bytes=int(nbytes), size=sess.size)
 
     def __enter__(self):
+        self._t0 = time.perf_counter()
         # walks run on pool threads, so the label lives on the session;
         # rare concurrent collectives of different kinds may cross-label
         # a few bytes, which accounting tolerates
@@ -89,6 +103,9 @@ class _CollectiveScope:
     def __exit__(self, *exc):
         self._span.__exit__(*exc)
         self._sess._wire_kind = self._prev_kind
+        hist = self._sess._coll_hist
+        if hist is not None:
+            hist.labels(self._kind).observe(time.perf_counter() - self._t0)
         return False
 
 
@@ -167,6 +184,34 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         self.wire_bytes: Dict[Tuple[str, str, str], int] = {}
         self._wire_lock = threading.Lock()
         self._wire_kind = "raw"
+        # telemetry, resolved once per session epoch: the per-collective
+        # latency histogram (one observe per COLLECTIVE, not per message),
+        # the registry twins of wire_bytes and the codec's savings
+        metrics_on = tconfig.metrics_enabled()
+        self._coll_hist = tmetrics.histogram(
+            "kungfu_collective_latency_seconds",
+            "Host-plane collective latency by kind",
+            ("collective",),
+        ) if metrics_on else None
+        self._wire_ctr = tmetrics.counter(
+            "kungfu_collective_wire_bytes_total",
+            "Host-plane collective payload bytes sent by this peer",
+            ("collective", "strategy", "codec"),
+        ) if metrics_on else None
+        self._wire_saved_ctr = tmetrics.counter(
+            "kungfu_collective_wire_saved_bytes_total",
+            "Wire bytes saved by the collective codec on this peer",
+            ("collective", "codec"),
+        ) if metrics_on else None
+        # audit dedup: one codec-bypass event per (reason, dtype) and one
+        # segmented-fallback event per session epoch
+        self._codec_bypass_seen: set = set()
+        self._segmented_fallback_noted = False
+        self._in_fixed_walk = False
+        # per-step ring spans: under KF_TELEMETRY=trace, thinned by the
+        # deterministic sampler
+        self._step_spans = tconfig.trace_enabled()
+        self._span_sampler = SpanSampler(tconfig.span_sample())
         # error-feedback residual store of the quantized wire codec:
         # per-workspace f32 remainders, flushed on wire-mode changes; dies
         # with the session on elastic resize
@@ -182,6 +227,42 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         self._scheduler = None
         self._scheduler_lock = threading.Lock()
         self._epoch_closed = False
+        # active-ring observability: this peer's position in the ring
+        # order and its successor; the re-plan counter and the two-level
+        # role keep a flat plan's values until the re-plan is ported
+        if metrics_on:
+            self._ring_pos_g = tmetrics.gauge(
+                "kungfu_topology_ring_position",
+                "This peer's position in the active segmented-ring order "
+                "(0-based; equals rank until a measured re-plan lands)",
+            )
+            self._ring_next_g = tmetrics.gauge(
+                "kungfu_topology_ring_next",
+                "The active ring successor of this peer (child per dst, "
+                "value 1) — the edge every segmented send crosses",
+                ("dst",),
+            )
+            self._replans_ctr = tmetrics.counter(
+                "kungfu_topology_replans_total",
+                "Measured-topology re-plans adopted by this peer's "
+                "session epochs",
+            )
+            self._ring_role_g = tmetrics.gauge(
+                "kungfu_topology_ring_role",
+                "Active two-level plan role of this peer (child per "
+                "(level, role), value = host-group index)",
+                ("level", "role"),
+            )
+            self._wire_mode_g = tmetrics.gauge(
+                "kungfu_collective_wire_mode",
+                "Active wire-codec mode of this peer's collective "
+                "session (child per mode, value 1 on the running one)",
+                ("mode",),
+            )
+        else:
+            self._ring_pos_g = self._ring_next_g = self._replans_ctr = None
+            self._ring_role_g = self._wire_mode_g = None
+        self._publish_ring_metrics()
         if knobs.get("KF_DEBUG_PROTOCOL") and not _protowatch_warned[0]:
             _protowatch_warned[0] = True
             log.warn("KF_DEBUG_PROTOCOL is set, but the port has no collective-order "
@@ -216,7 +297,7 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         """Whether this epoch runs the ZeRO-1 sharded weight update.
         `auto` resolves to on for multi-peer sessions. Cluster-agreed like
         KF_CONFIG_ASYNC. (The reference's memory-plane advisory when
-        `auto` resolves off is telemetry work, ROADMAP item 1e.)"""
+        `auto` resolves off is ROADMAP item 1e-iv.)"""
         if self.zero_mode == "on":
             return True
         if self.zero_mode == "auto":
@@ -325,15 +406,27 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
             f"kungfu::interference:{self.adaptive.switch_count}{vote_tag}"))
         if int(votes_out[0]) * 2 <= self.size:
             return False
+        old_strategy, old_wire = self._candidates[self.adaptive.active]
         idx = self.adaptive.advance()
         self.global_strategies = self._candidate(idx)
-        new_wire = self._candidates[idx][1]
+        new_strategy, new_wire = self._candidates[idx]
         # safety: all peers must now run the same graphs AND wire format
         if not self.bytes_consensus(
             st.digest(self.global_strategies) + new_wire.encode(),
             f":switch:{self.adaptive.switch_count}",
         ):
             raise RuntimeError("strategy switch diverged across peers")
+        self._publish_wire_mode()
+        audit.record_event(
+            "strategy_switch",
+            peer=str(self.self_id),
+            trigger="interference_vote",
+            old_strategy=old_strategy.name,
+            new_strategy=new_strategy.name,
+            old_wire=old_wire,
+            new_wire=new_wire,
+            switch_count=self.adaptive.switch_count,
+        )
         return True
 
     def check_precision(self, proposal: Optional[str] = None, trigger: str = "noise_scale",
@@ -343,9 +436,10 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         the current one); ballots are one-hot over WIRE_MODES, and a
         strict majority for a different mode flips the active candidate's
         wire member on EVERY peer. Returns the new mode, or None. The flip
-        is digest-checked and flushes the error-feedback residuals.
-        (`trigger` and `signals` label the reference's decision record,
-        which the port does not keep yet.)"""
+        is digest-checked, flushes the error-feedback residuals and is
+        audited (`precision_switch`, labelled by `trigger`); `signals` feed
+        the reference's decision ledger, which the port does not keep
+        yet."""
         if proposal is not None and proposal not in WIRE_MODES:
             raise ValueError(
                 f"check_precision: unknown wire mode {proposal!r}; "
@@ -373,6 +467,15 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         if not self.bytes_consensus(winner.encode(), f":precision:{self._precision_flips}"):
             raise RuntimeError("precision switch diverged across peers")
         self._flush_residuals(f"precision vote {old_mode!r} -> {winner!r}")
+        self._publish_wire_mode()
+        audit.record_event(
+            "precision_switch",
+            peer=str(self.self_id),
+            trigger=trigger,
+            old_wire=old_mode,
+            new_wire=winner,
+            flip_count=self._precision_flips,
+        )
         return winner
 
     def active_strategy(self) -> Optional[Strategy]:
@@ -407,6 +510,34 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
                 f"set_tree forest must be one tree rooted at rank 0, got roots {roots}")
         self.global_strategies = st.from_forest_array(list(fathers))
         self._tree_override = True
+
+    def calc_stats(self) -> dict:
+        """Per-strategy throughput summary (parity: CalcStats/LogStats)."""
+        return self.adaptive.summary()
+
+    def _publish_ring_metrics(self) -> None:
+        """Refresh the active-ring gauges (position and successor edge)
+        of the rank-order ring, and the flat plan's role; children are
+        rebuilt so an old successor edge never stays in the exposition."""
+        if self._ring_pos_g is None:
+            return
+        pos = self.rank
+        succ = self.peers[(pos + 1) % self.size] if self.size > 1 else None
+        self._ring_pos_g.set(pos)
+        self._ring_next_g.clear_children()
+        if succ is not None:
+            self._ring_next_g.labels(str(succ)).set(1)
+        self._ring_role_g.clear_children()
+        self._ring_role_g.labels("flat", "member").set(0)
+        self._publish_wire_mode()
+
+    def _publish_wire_mode(self) -> None:
+        """Refresh the active-precision gauge; children are rebuilt so a
+        precision flip never leaves the OLD mode frozen at 1."""
+        if self._wire_mode_g is None:
+            return
+        self._wire_mode_g.clear_children()
+        self._wire_mode_g.labels(self._active_wire_mode()).set(1)
 
     def owned_bounds(self, count: int) -> Tuple[int, int]:
         """(begin, end) of the segment THIS rank owns fully reduced after
@@ -536,9 +667,15 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         """Allreduce over a rank-0 star, unchunked and uncompressed — a
         walk whose rendezvous names and message sizes depend on NOTHING
         the knobs control, so it completes even across knob-divergent
-        peers."""
-        bcast, red = self._root_star_graphs(0)
-        self._run_graphs(w, [red, bcast])
+        peers. Marked as a deliberate graph walk: it must not trip the
+        `segmented_fallback` audit meant for payloads that fell back from
+        the segmented engine."""
+        self._in_fixed_walk = True
+        try:
+            bcast, red = self._root_star_graphs(0)
+            self._run_graphs(w, [red, bcast])
+        finally:
+            self._in_fixed_walk = False
 
     def check_knob_consensus(self) -> None:
         """Fail fast on engine-knob divergence: one consensus over the

@@ -1,8 +1,11 @@
 """Collective critical-path profiler and span sampling.
 
-Port of `kungfu_tpu/collective/profiler.py`, without its metrics export
-(the telemetry registry is ROADMAP item 1e): `snapshot()` and
-`signals()` read the same attribution.
+Port of `kungfu_tpu/collective/profiler.py`. With metrics on, every
+walk's attribution also lands in the registry
+(`kungfu_collective_walk_seconds_total{collective,strategy,phase}`);
+the efficiency-ratio gauge waits for a link bandwidth estimate, which
+the port's link table (ROADMAP item 1e-ii) does not supply yet.
+`snapshot()` and `signals()` read the same attribution.
 
 Everything here is walk *measurement*: per-walk wait/send accumulation
 (:class:`WalkProfile`), the deterministic per-step span sampler
@@ -17,6 +20,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional, Tuple
 
+from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import metrics as tmetrics
 
 
 class WalkProfile:
@@ -152,6 +157,32 @@ class WalkProfiler:
                     else self._ALPHA * eff + (1.0 - self._ALPHA) * a["eff"]
                 )
                 a["eff_samples"] += 1
+                ewma = a["eff"]
+            else:
+                ewma = None
+        self._publish(collective, strategy, wall, wait, send, ewma)
+
+    def _publish(self, collective, strategy, wall, wait, send, eff) -> None:
+        # re-read the gate every walk (once per walk, not per step): the
+        # profiler is process-global and outlives session epochs
+        if not tconfig.metrics_enabled():
+            return
+        phases = tmetrics.counter(
+            "kungfu_collective_walk_seconds_total",
+            "Walk wall time attributed to wait-on-recv / reduce+codec "
+            "compute / send-blocked, per collective and strategy",
+            ("collective", "strategy", "phase"),
+        )
+        phases.labels(collective, strategy, "wait").inc(wait)
+        phases.labels(collective, strategy, "send").inc(send)
+        phases.labels(collective, strategy, "compute").inc(max(wall - wait - send, 0.0))
+        if eff is not None:
+            tmetrics.gauge(
+                "kungfu_collective_efficiency_ratio",
+                "EWMA of achieved walk time vs the 2(k-1)/k*N bandwidth-"
+                "optimal bound at measured link speed (1.0 = optimal)",
+                ("collective", "strategy"),
+            ).labels(collective, strategy).set(eff)
 
     def snapshot(self) -> Dict[str, dict]:
         """Per-'collective/strategy' attribution summary; fractions sum

@@ -44,8 +44,13 @@ shard update → weight all-gather → scatter across the 4 stage threads.
 :meth:`~CollectiveScheduler.wait_gather` waits for the weight
 all-gathers.
 
-Not ported: the reference's metrics, step timelines and memory-plane
-accountant (ROADMAP item 1e). Spans go to `utils/trace.py`.
+Telemetry, as the reference's: the stage threads enter
+``trace.step_scope(epoch, round)`` of the round they run, so their
+``sched.*`` spans carry a ``step`` arg; with metrics on the scheduler
+keeps ``kungfu_scheduler_queued_buckets``,
+``kungfu_scheduler_overlap_seconds_total`` and
+``kungfu_scheduler_flush_wait_seconds``. Not ported: the step timelines
+and the memory-plane accountant (ROADMAP items 1e-iii and 1e-iv).
 """
 
 from __future__ import annotations
@@ -58,8 +63,10 @@ import numpy as np
 import torch
 
 from kungfu_tpu_torch import knobs
-from kungfu_tpu_torch.base.dtype import DType
 from kungfu_tpu_torch.base.workspace import Workspace
+from kungfu_tpu_torch.collective.codec import dtype_str
+from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.handoff import HandoffQueue
 from kungfu_tpu_torch.utils.stall import stall_detect
@@ -73,14 +80,6 @@ _KF_JOINABLE_THREADS = (
 # "ar" allreduce or "zero" sharded update; the consensus digest is built
 # from these, byte for byte the reference's
 _Key = Tuple[str, int, str, int, str]
-
-
-def dtype_str(dt: torch.dtype) -> str:
-    """numpy's `dtype.str` of a torch dtype, as the reference's keys hold
-    it (bf16 is ml_dtypes' two-byte void, ``<V2``)."""
-    if dt == torch.bfloat16:
-        return "<V2"
-    return DType.from_torch(dt).to_numpy().str
 
 
 def _key_of(w: Workspace, kind: str = "ar") -> _Key:
@@ -114,6 +113,8 @@ class CollectiveScheduler:
 
     def __init__(self, sess):
         self.sess = sess
+        # the session epoch, stamped with the round on every stage span
+        self.epoch_id = int(getattr(sess, "cluster_version", 0))
         self.queue_depth = max(1, int(knobs.get("KF_CONFIG_ASYNC_QUEUE")))
         self._unit_bytes: Dict[int, int] = {}  # unit index -> payload bytes
         self._cond = threading.Condition()
@@ -138,7 +139,8 @@ class CollectiveScheduler:
         # sharded units whose weight all-gather has not landed yet
         self._gather_outstanding = 0
         self._busy_s = 0.0  # pack+walk+gather+unpack seconds this round
-        self._inflight_bytes = 0  # payload bytes of units packed, not yet unpacked
+        self._queued = 0  # units packed but not yet unpacked (gauge)
+        self._inflight_bytes = 0  # payload bytes of those units
         self._stat = {
             "rounds": 0, "units": 0, "buckets": 0, "zero_units": 0,
             "flush_wait_s": 0.0, "busy_s": 0.0, "overlap_s": 0.0,
@@ -147,6 +149,23 @@ class CollectiveScheduler:
         self._walkq = HandoffQueue(maxsize=self.queue_depth, abort=self._abort)
         self._gatherq = HandoffQueue(maxsize=1, abort=self._abort)
         self._unpackq = HandoffQueue(maxsize=1, abort=self._abort)
+        if tconfig.metrics_enabled():
+            self._queued_gauge = tmetrics.gauge(
+                "kungfu_scheduler_queued_buckets",
+                "Async-scheduler launch units currently packed or "
+                "walking (not yet unpacked)",
+            )
+            self._overlap_ctr = tmetrics.counter(
+                "kungfu_scheduler_overlap_seconds_total",
+                "Scheduler engine-busy seconds that overlapped caller "
+                "compute (busy time minus flush wait, per round)",
+            )
+            self._flush_wait_ctr = tmetrics.counter(
+                "kungfu_scheduler_flush_wait_seconds",
+                "Seconds flush() blocked waiting for in-flight buckets",
+            )
+        else:
+            self._queued_gauge = self._overlap_ctr = self._flush_wait_ctr = None
 
     def inflight_bytes(self) -> int:
         """Payload bytes of units packed but not yet unpacked."""
@@ -268,6 +287,10 @@ class CollectiveScheduler:
                 self._stat["busy_s"] += busy
                 self._stat["overlap_s"] += max(0.0, busy - wait)
                 self._cond.notify_all()
+        if self._flush_wait_ctr is not None:
+            self._flush_wait_ctr.inc(wait)
+        if self._overlap_ctr is not None:
+            self._overlap_ctr.inc(max(0.0, busy - wait))
 
     def round_index(self) -> int:
         """The current (not-yet-flushed) round number."""
@@ -526,7 +549,8 @@ class CollectiveScheduler:
                 for w in members:
                     if w.ready is not None:
                         w.ready.synchronize()  # its staging copy has landed
-                with trace.span("sched.pack", unit=unit.index):
+                with trace.step_scope(self.epoch_id, rnd), \
+                        trace.span("sched.pack", unit=unit.index):
                     if unit.kind == "zero":
                         # the handler packs into pooled staging and stamps
                         # its own round-qualified wire names (:zrs:/:zag:)
@@ -541,7 +565,8 @@ class CollectiveScheduler:
                         item = (Workspace(send=w.send, recv=w.recv, op=w.op,
                                           name=f"{w.name}::as:r{rnd}"),
                                 None, None, members)
-                self._add_busy(time.perf_counter() - t0, nbytes=self._unit_bytes[unit.index])
+                self._add_busy(time.perf_counter() - t0, queued=+1,
+                               nbytes=self._unit_bytes[unit.index])
                 if not self._walkq.put((unit, rnd, item)):
                     return  # aborted while the queue was full
         except BaseException as e:  # noqa: BLE001 - channeled to flush()
@@ -560,7 +585,8 @@ class CollectiveScheduler:
                 unit, rnd, item = got
                 t0 = time.perf_counter()
                 if unit.kind == "zero":
-                    with trace.span("sched.walk", unit=unit.index):
+                    with trace.step_scope(self.epoch_id, rnd), \
+                            trace.span("sched.walk", unit=unit.index):
                         item = self._handler.reduce_and_update(item, cancel=self._abort)
                     self._add_busy(time.perf_counter() - t0)
                     # the shard is updated: the gradients are consumed, so
@@ -573,7 +599,8 @@ class CollectiveScheduler:
                     if not self._gatherq.put((unit, rnd, item)):
                         return
                     continue
-                with trace.span("sched.walk", unit=unit.index):
+                with trace.step_scope(self.epoch_id, rnd), \
+                        trace.span("sched.walk", unit=unit.index):
                     if unit.fused:
                         deferred = self.sess._allreduce_ws(item[0], cancel=self._abort,
                                                            defer_decode=True)
@@ -601,7 +628,8 @@ class CollectiveScheduler:
                 unit, rnd, item = got
                 if unit.kind == "zero":
                     t0 = time.perf_counter()
-                    with trace.span("sched.gather", unit=unit.index):
+                    with trace.step_scope(self.epoch_id, rnd), \
+                            trace.span("sched.gather", unit=unit.index):
                         item = self._handler.gather(item, cancel=self._abort)
                     self._add_busy(time.perf_counter() - t0)
                 if not self._unpackq.put((unit, rnd, item)):
@@ -623,9 +651,10 @@ class CollectiveScheduler:
                 t0 = time.perf_counter()
                 nbytes = self._unit_bytes[unit.index]
                 if unit.kind == "zero":
-                    with trace.span("sched.unpack", unit=unit.index):
+                    with trace.step_scope(self.epoch_id, rnd), \
+                            trace.span("sched.unpack", unit=unit.index):
                         self._handler.scatter(item, cancel=self._abort)
-                    self._add_busy(time.perf_counter() - t0, nbytes=-nbytes)
+                    self._add_busy(time.perf_counter() - t0, queued=-1, nbytes=-nbytes)
                     with self._cond:
                         self._gather_outstanding -= 1
                         self._stat["units"] += 1
@@ -633,12 +662,13 @@ class CollectiveScheduler:
                         self._cond.notify_all()
                     continue
                 if unit.fused:
-                    with trace.span("sched.unpack", unit=unit.index):
+                    with trace.step_scope(self.epoch_id, rnd), \
+                            trace.span("sched.unpack", unit=unit.index):
                         self.sess._unpack_bucket(item, self._abort)
                 elif item[4] is not None:
                     # single: the walk wrote w.recv in place
                     item[4].close()
-                self._add_busy(time.perf_counter() - t0, nbytes=-nbytes)
+                self._add_busy(time.perf_counter() - t0, queued=-1, nbytes=-nbytes)
                 with self._cond:
                     self._grad_done += 1
                     self._stat["units"] += 1
@@ -648,9 +678,13 @@ class CollectiveScheduler:
         except BaseException as e:  # noqa: BLE001 - channeled to flush()
             self._record_error(e)
 
-    def _add_busy(self, seconds: float, nbytes: int = 0) -> None:
-        """Engine-busy seconds; `nbytes` enters (pack) or leaves (unpack)
-        the in-flight payload."""
+    def _add_busy(self, seconds: float, queued: int = 0, nbytes: int = 0) -> None:
+        """Engine-busy seconds; a unit enters (pack: `queued` +1) or
+        leaves (unpack: -1) the queue with its `nbytes` of payload."""
         with self._cond:
             self._busy_s += seconds
+            self._queued += queued
             self._inflight_bytes = max(0, self._inflight_bytes + nbytes)
+            q = self._queued
+        if queued and self._queued_gauge is not None:
+            self._queued_gauge.set(q)

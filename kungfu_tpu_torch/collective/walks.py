@@ -16,10 +16,12 @@ the critical-path profiler feeds. Buffers are one-dimensional contiguous
 torch CPU tensors; they cross into the transport only here, as their
 bytes (`_buf`), and come back from received bytes by `_frombuffer`.
 
-Left out of the port for now: the two-level walk over an adopted
-`HierPlan` and the ring order of an adopted `RingPlan`, which only the
-re-plan rounds set, and the sampled per-step spans of the telemetry
-plane (ROADMAP item 1e); the ring here is rank order.
+With `KF_TELEMETRY=trace` the segmented walk records one span per ring
+step (`host.rs.step`, `host.ag.step`, thinned by
+`KF_TELEMETRY_SPAN_SAMPLE`). Left out of the port for now: the two-level
+walk over an adopted `HierPlan` and the ring order of an adopted
+`RingPlan`, which only the re-plan rounds set (ROADMAP item 1e-ii); the
+ring here is rank order.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from kungfu_tpu_torch.collective.profiler import WalkProfile, get_walk_profiler
 from kungfu_tpu_torch.plan import topology as topo
 from kungfu_tpu_torch.plan.graph import Graph
 from kungfu_tpu_torch.plan.peer import PeerID
+from kungfu_tpu_torch.telemetry import audit
 from kungfu_tpu_torch.transport.message import ConnType, Flags
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.handoff import parallel_run as _par
@@ -156,13 +159,20 @@ class WalkEngine:
     # accounting / profiling plumbing
     # ------------------------------------------------------------------
 
-    def _count_wire(self, nbytes: int, strategy_label: str, codec: str = "off") -> None:
+    def _count_wire(self, nbytes: int, strategy_label: str, codec: str = "off",
+                    raw_bytes: int = 0) -> None:
         """Payload bytes this peer sent into a walk, by (public
-        collective, executing strategy, codec)."""
+        collective, executing strategy, codec); with metrics on, also the
+        `kungfu_collective_wire_bytes_total` counter and the bytes the
+        codec kept off the wire (`raw_bytes` minus `nbytes`)."""
         if nbytes:
             key = (self._wire_kind, strategy_label, codec)
             with self._wire_lock:
                 self.wire_bytes[key] = self.wire_bytes.get(key, 0) + nbytes
+            if self._wire_ctr is not None:
+                self._wire_ctr.labels(*key).inc(nbytes)
+        if self._wire_saved_ctr is not None and codec != "off" and raw_bytes > nbytes:
+            self._wire_saved_ctr.labels(self._wire_kind, codec).inc(raw_bytes - nbytes)
 
     def _record_walk(self, strategy_label: str, k: int, payload_bytes: int, wall: float,
                      prof: WalkProfile) -> None:
@@ -174,11 +184,23 @@ class WalkEngine:
         """Strategy label for graph-walk wire accounting: the graphs that
         actually EXECUTED. While RING_SEGMENTED is active, a payload below
         SEGMENT_MIN_BYTES (or a reduce/broadcast/gather) walks the binary
-        tree fallback graphs and must not count as RING_SEGMENTED."""
+        tree fallback graphs and must not count as RING_SEGMENTED. The
+        first such fallback of a session epoch is audited
+        (`segmented_fallback`), except inside the knob-consensus walk,
+        which takes the star by design."""
         if self._tree_override:
             return "SET_TREE"
         active = self._candidates[self.adaptive.active][0]
         if active == Strategy.RING_SEGMENTED:
+            if not self._segmented_fallback_noted and not self._in_fixed_walk:
+                self._segmented_fallback_noted = True
+                audit.record_event(
+                    "segmented_fallback",
+                    peer=str(self.self_id),
+                    collective=self._wire_kind,
+                    wire_label=Strategy.BINARY_TREE.name,
+                    threshold_bytes=self.SEGMENT_MIN_BYTES,
+                )
             return Strategy.BINARY_TREE.name
         return active.name
 
@@ -277,6 +299,10 @@ class WalkEngine:
         bufpool = get_buffer_pool()
         deadline = time.monotonic() + self.timeout
         wire_bytes = 0
+        raw_bytes = 0
+        # per-step spans of this walk (KF_TELEMETRY=trace, thinned by
+        # KF_TELEMETRY_SPAN_SAMPLE)
+        emit_steps = self._step_spans and self._span_sampler.sample()
         # critical-path attribution: wait-on-recv and send-blocked seconds
         # of THIS thread; the reduce/codec compute is the residual
         prof = WalkProfile()
@@ -474,7 +500,7 @@ class WalkEngine:
                         msg.release()
 
         def step(phase: str, s: int, send_seg: int, recv_seg: int) -> None:
-            nonlocal wire_bytes
+            nonlocal wire_bytes, raw_bytes
             sb, se = bounds[send_seg]
             rb, re_ = bounds[recv_seg]
             name = f"{w.name}:{phase}{s}"
@@ -487,6 +513,7 @@ class WalkEngine:
             # and overlap the predecessor wait (disjoint segments).
             if se > sb:
                 wire_bytes += seg_wire_nbytes(se - sb)
+                raw_bytes += (se - sb) * itemsize
             if wire is not None:
                 pending = None
                 if se > sb:
@@ -511,12 +538,25 @@ class WalkEngine:
                 else:
                     recv_ag(name, recv_seg, rb, re_)
 
+        def timed_step(span_name: str, phase: str, s: int, snd: int, rcv: int) -> None:
+            """One ring step, with a per-step span (when this walk emits
+            them) annotated with how long the step was blocked waiting on
+            its predecessor vs its successor."""
+            if not emit_steps:
+                step(phase, s, snd, rcv)
+                return
+            w0, s0 = prof.wait, prof.send
+            with trace.span(span_name, step=s, k=k) as sp:
+                step(phase, s, snd, rcv)
+                sp.args["wait_us"] = round((prof.wait - w0) * 1e6)
+                sp.args["send_us"] = round((prof.send - s0) * 1e6)
+
         t0 = time.perf_counter()
         if phase != "ag":
             for s, (snd, rcv) in enumerate(sched.rs_steps):
-                step("rs", s, snd, rcv)
+                timed_step("host.rs.step", "rs", s, snd, rcv)
         if phase == "rs":
-            self._count_wire(wire_bytes, Strategy.RING_SEGMENTED.name, "off")
+            self._count_wire(wire_bytes, Strategy.RING_SEGMENTED.name, "off", raw_bytes)
             wall = time.perf_counter() - t0
             trace.record(f"host.rs[{w.recv.nbytes >> 20}MiB]", wall)
             # half walks move (k-1)/k·N = the optimal 2(k-1)/k volume of
@@ -540,7 +580,7 @@ class WalkEngine:
                         ef = ef_full[ob:oe]
                 encode_seg(ag_slice(sched.owned_segment), ob, oe, ef)
         for s, (snd, rcv) in enumerate(sched.ag_steps):
-            step("ag", s, snd, rcv)
+            timed_step("host.ag.step", "ag", s, snd, rcv)
         if cancel is not None and cancel.is_set():
             # a sibling in the group scope timed out while our steps
             # completed — acc may belong to a caller that already raised
@@ -561,7 +601,7 @@ class WalkEngine:
                 with trace.span("host.wire.decode", bytes=int(acc.numel() * 2)):
                     decode_wire_any(acc, wirearr, wire)
                 bufpool.put(wirebuf)
-        self._count_wire(wire_bytes, Strategy.RING_SEGMENTED.name, codec_label)
+        self._count_wire(wire_bytes, Strategy.RING_SEGMENTED.name, codec_label, raw_bytes)
         wall = time.perf_counter() - t0
         trace.record(f"host.segmented[{w.recv.nbytes >> 20}MiB]", wall)
         self._record_walk(Strategy.RING_SEGMENTED.name, k,
@@ -662,7 +702,7 @@ class WalkEngine:
             # zero-copy: the walk's phases are sequential per chunk, so
             # the buffer cannot change while the send drains it
             self.client.send(peer, w.name, _buf(effective()), ConnType.COLLECTIVE, flags)
-            self._count_wire(wire_nbytes, wire_label, codec_label)
+            self._count_wire(wire_nbytes, wire_label, codec_label, nbytes)
 
         def send_all(peers: List[PeerID], flags: Flags = Flags.NONE) -> None:
             """Fan-out send of the current effective() buffer. Wire mode
@@ -686,7 +726,7 @@ class WalkEngine:
 
             def send_enc(peer: PeerID) -> None:
                 self.client.send(peer, w.name, _buf(enc), ConnType.COLLECTIVE, flags)
-                self._count_wire(wire_nbytes, wire_label, codec_label)
+                self._count_wire(wire_nbytes, wire_label, codec_label, nbytes)
 
             t_send = time.perf_counter()
             _par([lambda p=p: send_enc(p) for p in peers], self.timeout, cancel)

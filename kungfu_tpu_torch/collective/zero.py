@@ -41,7 +41,10 @@ stage threads; ``flush()`` returns once every shard updated and
 state all-gather; every peer leaves with the identical blob, byte for
 byte the reference's) and rebuild on the new epoch with
 ``restore_state=blob``. The measured re-plan hooks (`pre_replan`,
-`post_replan`) come with the re-plan rounds (ROADMAP item 1e).
+`post_replan`) come with the re-plan rounds (ROADMAP item 1e-ii).
+With metrics on, the session keeps `kungfu_sharded_update_state_bytes`
+and `kungfu_sharded_update_seconds_total`; its memory-plane accountant
+is ROADMAP item 1e-iv.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ from kungfu_tpu_torch.base.ops import ReduceOp
 from kungfu_tpu_torch.base.serialize import pack_leaves, unpack_leaves
 from kungfu_tpu_torch.base.workspace import Workspace
 from kungfu_tpu_torch.plan import topology as topo
+from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.pool import get_buffer_pool
 
@@ -214,6 +219,21 @@ class ShardedUpdateSession:
         self._lock = threading.Lock()
         if restore_state is not None:
             self._restore(restore_state)
+        if tconfig.metrics_enabled():
+            self._state_gauge = tmetrics.gauge(
+                "kungfu_sharded_update_state_bytes",
+                "Optimizer-held bytes of the ZeRO-1 sharded update on "
+                "this peer (shard master weights + shard optimizer "
+                "state) — ~1/k of the replicated path's full-size state",
+            )
+            self._update_ctr = tmetrics.counter(
+                "kungfu_sharded_update_seconds_total",
+                "Seconds spent in the shard-local optimizer update "
+                "(the k-fold-reduced update FLOPs of ZeRO-1)",
+            )
+            self._state_gauge.set(self.state_bytes())
+        else:
+            self._state_gauge = self._update_ctr = None
 
     def _add_bucket(self, names, params) -> None:
         total = int(sum(p.numel() for p in params))
@@ -388,10 +408,13 @@ class ShardedUpdateSession:
                                    "landed — cannot start the next shard update")
         if cancel is not None and cancel.is_set():
             raise TimeoutError(f"sharded update cancelled: bucket {b.index}")
+        t0 = time.perf_counter()
         with trace.span("zero.update", bucket=item.zindex, elems=int(b.oe - b.ob)):
             self.opt.apply(b.master, item.garr[b.ob:b.oe], b.state, self._scale)
             b.W[b.ob:b.oe].copy_(b.master)
         b.settled.clear()
+        if self._update_ctr is not None:
+            self._update_ctr.inc(time.perf_counter() - t0)
         get_buffer_pool().put(item.gbuf)
         item.gbuf = item.garr = None
         return item

@@ -76,6 +76,14 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, ClusterError, json.JSONDecodeError) as e:
             self._reply(400, json.dumps({"error": str(e)}).encode())
             return
+        from kungfu_tpu_torch.telemetry import audit
+
+        audit.record_event(
+            "config_put",
+            trigger="http",
+            version=version,
+            size=len(cluster.workers),
+        )
         self._reply(200, json.dumps({"Version": version}).encode())
 
     def do_POST(self):

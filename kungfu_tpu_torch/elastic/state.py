@@ -136,8 +136,7 @@ class ElasticState:
         # (bytes 0: nothing to send, a world of one or a pure shrink)
         self.last_sync: dict = {}
         # last checkpoint version this loop saved/restored; None until
-        # note_checkpoint() (the reference stamps it onto resize audit
-        # records, which wait for ROADMAP item 1e)
+        # note_checkpoint(); stamped onto the resize audit records
         self._checkpoint_version: Optional[int] = None
 
     def note_checkpoint(self, version: int) -> None:
@@ -219,6 +218,17 @@ class ElasticState:
                 self._stop_reason = "reload"
             return
         changed, detached = api.resize()
+        if changed:
+            # the resize audit record was written deep in the peer
+            # protocol; only the elastic driver knows the training
+            # progress (and checkpoint version) it happened at
+            from kungfu_tpu_torch.telemetry import audit
+
+            audit.annotate_last(
+                peer=str(self._peer.self_id),
+                progress=self.progress,
+                checkpoint_version=self._checkpoint_version,
+            )
         if detached:
             self._stop_reason = "detached"
         elif changed:

@@ -181,6 +181,10 @@ _knob("KF_MONITOR_ADDR", "", _str,
       "Where `send_heartbeat` POSTs worker heartbeats "
       "(set by the monitored runner).",
       section=_SEC_ELASTIC, kind="host:port")
+_knob("KF_CONFIG_ENABLE_MONITORING", "", _bool,
+      "Truthy spelling enables the gradient-noise/variance monitor "
+      "(also implied by `KF_TELEMETRY=metrics`).",
+      section=_SEC_ELASTIC, kind="bool")
 _knob("KF_CONFIG_ENABLE_STALL_DETECTION", "", _bool,
       "Truthy spelling logs collectives that exceed their deadline "
       "repeatedly until they complete.",
@@ -347,6 +351,23 @@ _knob("KF_CONFIG_LOG_LEVEL", "INFO", _stripped,
       "is unset.",
       section=_SEC_LOG, kind="level")
 
+_SEC_TELEMETRY = "Telemetry"
+_knob("KF_TELEMETRY", "", _stripped,
+      "Telemetry feature selection: comma list of `metrics`, `trace`, "
+      "`audit`; `all`/any truthy value enables everything.",
+      section=_SEC_TELEMETRY, kind="csv")
+_knob("KF_TELEMETRY_MAX_SERIES", "512", _int,
+      "Cardinality guard: max distinct label-sets per metric family "
+      "(0 disables). Past the cap, lookups get a shared detached child "
+      "and `kungfu_telemetry_dropped_series_total` counts the drops.",
+      section=_SEC_TELEMETRY, kind="int")
+_knob("KF_TELEMETRY_SPAN_SAMPLE", "1.0", _float,
+      "Fraction of collective walks whose per-step spans are emitted, "
+      "in [0,1]; deterministic (not random) sampling.",
+      section=_SEC_TELEMETRY, kind="float")
+_knob("KF_TRACE_BUFFER", "8192", _int,
+      "Span ring-buffer capacity (events) for the /trace view.",
+      section=_SEC_TELEMETRY, kind="int")
 
 # --- accessors ---------------------------------------------------------
 

@@ -68,7 +68,14 @@ def gradient_variance(opt: MonitorGradientVariance) -> torch.Tensor:
 
 
 def publish_gradient_variance(opt: MonitorGradientVariance) -> float:
-    """The variance estimate on the host (a read from the device: call it at
-    a logging cadence). The JAX package also sets a telemetry gauge here;
-    the port has no telemetry yet."""
-    return float(gradient_variance(opt))
+    """Read the variance estimate to the host and publish it as the
+    ``kungfu_gradient_variance`` gauge; returns the value. Call it at a
+    logging cadence: this is an explicit device -> host read."""
+    from kungfu_tpu_torch.telemetry import metrics as _tm
+
+    val = float(gradient_variance(opt))
+    _tm.gauge(
+        "kungfu_gradient_variance",
+        "Cross-worker gradient variance (summed Frobenius norm)",
+    ).set(val)
+    return val

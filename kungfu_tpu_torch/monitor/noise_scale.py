@@ -78,10 +78,24 @@ def noise_scale(state: GNSState) -> torch.Tensor:
 
 
 def publish_noise_scale(state: GNSState) -> float:
-    """The GNS estimate on the host (a read from the device: call it at a
-    logging cadence, not every step). The JAX package also sets telemetry
-    gauges here; the port has no telemetry yet."""
-    return float(noise_scale(state))
+    """Read the GNS estimate to the host and publish it as the
+    ``kungfu_noise_scale`` gauge (plus the raw EMAs); returns the value.
+    The estimate itself stays on the device: this is an explicit device
+    -> host read, so call it at a logging cadence, not every step."""
+    from kungfu_tpu_torch.telemetry import metrics as _tm
+
+    val = float(noise_scale(state))
+    _tm.gauge(
+        "kungfu_noise_scale",
+        "Gradient noise scale (McCandlish critical batch estimate)",
+    ).set(val)
+    _tm.gauge(
+        "kungfu_noise_scale_g2_ema", "EMA of the |G|^2 estimate"
+    ).set(float(state.g2_ema))
+    _tm.gauge(
+        "kungfu_noise_scale_s_ema", "EMA of the tr(S) estimate"
+    ).set(float(state.s_ema))
+    return val
 
 
 class MonitorGradientNoiseScale(SynchronousSGD):

@@ -84,9 +84,23 @@ class PairAveraging:
         # mid-request gets a consistent snapshot while we publish the next
         # (parity: p2p.go versioned requests)
         self._version = 0
-        # the reference's kungfu_pair_avg_steps_total counter is a
-        # telemetry metric (ROADMAP item 1e); the counts are kept here
+        # steps by exchange outcome, here and (with metrics on) in the
+        # kungfu_pair_avg_steps_total counter: a falling "avg" share means
+        # peers are stale or mid-resize and steps degrade to local SGD.
+        # The label children are cached: step() is the training hot path
         self.steps = {"avg": 0, "plain": 0}
+        self._m_steps = None
+        from kungfu_tpu_torch.telemetry import config as _tcfg
+
+        if _tcfg.metrics_enabled():
+            from kungfu_tpu_torch.telemetry import metrics as _tm
+
+            fam = _tm.counter(
+                "kungfu_pair_avg_steps_total",
+                "PairAveraging steps by exchange outcome",
+                ("outcome",),
+            )
+            self._m_steps = {"avg": fam.labels("avg"), "plain": fam.labels("plain")}
         self.last: dict = {}
 
     # -- host-side exchange --------------------------------------------
@@ -191,7 +205,10 @@ class PairAveraging:
         if other is not None and any(tuple(o.shape) != tuple(p.shape)
                                      for o, p in zip(other, leaves)):
             other = None
-        self.steps["avg" if other is not None else "plain"] += 1
+        outcome = "avg" if other is not None else "plain"
+        self.steps[outcome] += 1
+        if self._m_steps is not None:
+            self._m_steps[outcome].inc()
         if other is not None:
             self._average(leaves, other)
         for p, g in zip(leaves, tree_flatten(grads)[0]):

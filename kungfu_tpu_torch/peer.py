@@ -12,11 +12,16 @@ new Stage to every runner (the reference's JSON, byte for byte, so either
 package's runner drives either's workers), every peer bumps the cluster
 version, and `_update_to` builds the next epoch's session. A joiner
 starts at that version from the runner's environment; a peer left out
-detaches. `last_resize_phases` times the phases of the latest resize.
+detaches. `last_resize_phases` times the phases of the latest resize,
+and every resize this peer takes part in appends an audit record
+carrying them.
 
-Not ported yet (ROADMAP item 1e): the telemetry server, the flight
-recorder, the host-role election, and the audit and decision records a
-resize writes in the reference.
+With any telemetry feature on (`KF_TELEMETRY`, or the metrics of
+`KF_CONFIG_ENABLE_MONITORING`) a worker serves `/metrics`, `/trace` and
+`/audit` on its peer port + 10000 (parity: peer/peer.go:96-104). Not
+ported yet: the flight recorder and the host-role election (ROADMAP
+item 1e-iii), and the decision records a resize writes in the
+reference (1e-ii).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.plan.peer import PeerList
 from kungfu_tpu_torch.runner import env as kfenv
 from kungfu_tpu_torch.store.versioned import BlobStore
-from kungfu_tpu_torch.telemetry import log
+from kungfu_tpu_torch.telemetry import audit, log
 from kungfu_tpu_torch.transport.client import Client
 from kungfu_tpu_torch.transport.handlers import CollectiveEndpoint, P2PEndpoint, QueueEndpoint
 from kungfu_tpu_torch.transport.message import ConnType
@@ -119,8 +124,31 @@ class Peer:
         if not self.config.single_process:
             with trace.span("worker.start.server"):
                 self.server.start()
+        self._start_telemetry_server()
         with trace.span("worker.start.update"):
             self._update_to(self._peers)
+
+    def _start_telemetry_server(self) -> None:
+        """Serve /metrics, /trace and /audit on self.port + 10000 when any
+        telemetry is on (parity: peer/peer.go:96-104). In-process peers
+        (`single_process`) serve nothing; a port that cannot be bound
+        (taken, or past 65535) warns instead of failing the worker."""
+        self.metrics_server = None
+        from kungfu_tpu_torch.monitor import net as _net
+        from kungfu_tpu_torch.telemetry import config as _tconfig
+
+        if (_net.enabled() or _tconfig.features()) and not self.config.single_process:
+            # the singleton, so the transport's counters mirror into the
+            # registry this server renders
+            _net.get_monitor()
+            try:
+                from kungfu_tpu_torch.telemetry.http import TelemetryServer
+
+                self.metrics_server = TelemetryServer(self.self_id.port + 10000)
+                self.metrics_server.start()
+            except (OSError, OverflowError) as e:
+                # OverflowError: peer port within 10000 of 65535
+                log.warn("telemetry server failed to start: %s", e)
 
     def stop(self) -> None:
         with self._session_lock:
@@ -128,6 +156,10 @@ class Peer:
                 self._session.close(timeout=5.0)
         self.server.stop()
         self.client.close()
+        if getattr(self, "metrics_server", None) is not None:
+            # close the listening socket too, not only the serve loop
+            self.metrics_server.stop()
+            self.metrics_server = None
 
     @property
     def rank(self) -> int:
@@ -231,6 +263,16 @@ class Peer:
         with trace.span("resize.update"):
             keep = self._update_to(cluster.workers)
         self.last_resize_phases["update_ms"] = round((time.perf_counter() - t2) * 1e3, 1)
+        audit.record_resize(
+            peer=str(self.self_id),
+            cluster_version=self.cluster_version,
+            trigger=trigger,
+            old_peers=list(old_peers),
+            new_peers=list(cluster.workers),
+            phases_ms=self.last_resize_phases,
+            progress=progress or None,
+            detached=not keep,
+        )
         log.info("resize v%d: %d -> %d workers (%s)%s", self.cluster_version, len(old_peers),
                  len(cluster.workers), trigger, "" if keep else " [detached]")
         return True, keep
@@ -342,6 +384,15 @@ class Peer:
         }
         if sess.rank == 0 and self.config.runners:
             self._notify_runners(stage)
+        audit.record_resize(
+            peer=str(self.self_id),
+            cluster_version=self.cluster_version + 1,
+            trigger="reload",
+            old_peers=list(self._peers),
+            new_peers=list(cluster.workers),
+            progress=progress,
+            detached=True,
+        )
         # in reload mode every worker detaches; runners restart the world
         self.detached = True
         return True, True

@@ -15,7 +15,7 @@ The workers get the reference's environment contract (`runner/env.py`),
 so this runner starts either package's workers and the reference's
 starts the port's. Not ported yet: the flight-recorder run dir
 (`KF_TELEMETRY_DIR`) and `-debug-port`'s `/cluster/*` telemetry routes
-(ROADMAP item 1e).
+(ROADMAP item 1e-iii).
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@ abort (handler.go:90-103 safety check). Joiners come from warm standbys
 where one is ready, from a cold spawn otherwise; card slots come from one
 pool across resizes; `-auto-recover` composes the heartbeat monitor in.
 
-Not ported yet (ROADMAP item 1e): the telemetry aggregator behind
-`-debug-port`'s `/cluster/*` routes, the flight-recorder postmortems of
-dead workers (the watcher logs their exit codes and output tails
-instead) and the audit records. Unlike the reference's watcher, this one
-honours `-timeout`: past it, every worker is killed and kfrun exits 1.
+A run the watcher gives up on leaves a `run_abort` audit record (too
+many failure recoveries, or no survivors). Not ported yet (ROADMAP item
+1e-iii): the telemetry aggregator behind `-debug-port`'s `/cluster/*`
+routes and the flight-recorder postmortems of dead workers (the watcher
+logs their exit codes and output tails instead). Unlike the reference's
+watcher, this one honours `-timeout`: past it, every worker is killed
+and kfrun exits 1.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Dict, List, Optional
 from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.plan.peer import PeerID, PeerList
 from kungfu_tpu_torch.runner.proc import WorkerProc
-from kungfu_tpu_torch.telemetry import log
+from kungfu_tpu_torch.telemetry import audit, log
 from kungfu_tpu_torch.transport.message import ConnType, Message
 from kungfu_tpu_torch.transport.server import Server
 
@@ -379,6 +381,14 @@ class Watcher:
         }
         if self.failure_restarts > 10:
             log.error("kfrun: too many failure recoveries, giving up")
+            # on the record, not just a log line: the audit log must say
+            # why the run died
+            audit.record_event(
+                "run_abort",
+                trigger="failure_recovery_limit",
+                restarts=self.failure_restarts,
+                exit_codes=codes,
+            )
             self.exit_code = 1
             self.done.set()
             return
@@ -387,6 +397,7 @@ class Watcher:
         log.warn("kfrun: workers %s died; reloading at size %d", codes, len(survivors))
         if not survivors:
             log.error("kfrun: no survivors; giving up")
+            audit.record_event("run_abort", trigger="no_survivors", exit_codes=codes)
             self.exit_code = 1
             self.done.set()
             return

@@ -1,0 +1,587 @@
+"""Process-wide metrics registry: counters, gauges, histograms with labels.
+
+Port of `kungfu_tpu/telemetry/metrics.py`. Transport byte and message
+counters, collective-latency histograms, resize counters and the monitor
+gauges all live in one :class:`Registry` and export through one
+Prometheus text endpoint (parity: the reference's monitor/server.go
+exposition, generalized to an open registry). For the same sequence of
+calls the exposition text is byte-equal to the JAX package's: the same
+HELP/TYPE lines, family order, label escaping, value formatting and
+histogram bounds.
+
+- every metric family is thread-safe (one lock per family; children
+  share it);
+- histograms are cumulative-bucket Prometheus histograms; quantiles are
+  estimated by linear interpolation inside the owning bucket
+  (histogram_quantile semantics);
+- label values are escaped per the Prometheus text exposition spec.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+from bisect import bisect_left
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+# latency-flavoured default buckets: 100us .. 60s
+DEFAULT_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+_RESERVED = ("__",)
+
+# Cardinality guard: cap distinct label combinations
+# PER METRIC FAMILY. Per-peer families ({peer}, {dst}) grow linearly with
+# cluster size — at k=64 that is fine, but a bug (or labels built from
+# unbounded values like message names) would otherwise grow the registry
+# without limit and take /metrics scrape time and RSS with it. Beyond the
+# cap, label lookups return a shared detached child (increments are
+# accepted and discarded from the exposition) and the drop is counted in
+# ``kungfu_telemetry_dropped_series_total{metric}`` — a visible signal
+# instead of silent unbounded growth. Read at family-creation time.
+MAX_SERIES_ENV = "KF_TELEMETRY_MAX_SERIES"
+DEFAULT_MAX_SERIES = 512
+DROPPED_SERIES = "kungfu_telemetry_dropped_series_total"
+
+
+def max_series() -> int:
+    """Per-family label-set cap (0 disables the guard)."""
+    from kungfu_tpu_torch import knobs
+
+    return max(0, knobs.get(MAX_SERIES_ENV))
+
+
+def _validate_name(name: str) -> str:
+    if not name or name.startswith(_RESERVED):
+        raise ValueError(f"bad metric name {name!r}")
+    ok = all(c.isalnum() or c in "_:" for c in name)
+    if not ok or name[0].isdigit():
+        raise ValueError(f"bad metric name {name!r}")
+    return name
+
+
+def _escape_label(value: str) -> str:
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt_value(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    f = float(v)
+    if f.is_integer() and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def _label_str(labelnames: Sequence[str], labelvalues: Sequence[str]) -> str:
+    if not labelnames:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape_label(v)}"' for k, v in zip(labelnames, labelvalues)
+    )
+    return "{" + inner + "}"
+
+
+class _Metric:
+    """Base family: owns children keyed by label-value tuples."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, labelnames: Sequence[str] = ()):
+        self.name = _validate_name(name)
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], object] = {}
+        # cardinality guard state: the cap (0 = unguarded; the dropped-
+        # series counter itself is exempt — its cardinality is bounded by
+        # the family count), the shared overflow child handed to callers
+        # past the cap, and the registry to count drops into (set by
+        # Registry._get_or_create; standalone families use the global)
+        self._max_series = (
+            max_series()
+            if self.labelnames and name != DROPPED_SERIES
+            else 0
+        )
+        self._overflow_child = None
+        self._registry: Optional["Registry"] = None
+        if not self.labelnames:
+            # label-less families get their default child eagerly so they
+            # always render (a registered counter at 0 is information)
+            self._children[()] = self._new_child()
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def labels(self, *labelvalues, **labelkv):
+        if labelkv:
+            if labelvalues:
+                raise ValueError("pass label values positionally OR by name")
+            try:
+                labelvalues = tuple(labelkv[k] for k in self.labelnames)
+            except KeyError as e:
+                raise ValueError(f"missing label {e} for {self.name}") from None
+        key = tuple(str(v) for v in labelvalues)
+        if len(key) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name}: got {len(key)} label values, "
+                f"want {len(self.labelnames)}"
+            )
+        dropped = False
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                if self._max_series and len(self._children) >= self._max_series:
+                    # at the cap: hand back the shared detached child —
+                    # writes are accepted (call sites stay branch-free)
+                    # but never rendered — and count the drop below,
+                    # outside this family's lock
+                    if self._overflow_child is None:
+                        self._overflow_child = self._new_child()
+                    child = self._overflow_child
+                    dropped = True
+                else:
+                    child = self._new_child()
+                    self._children[key] = child
+        if dropped:
+            self._count_drop()
+        return child
+
+    def _count_drop(self) -> None:
+        reg = self._registry if self._registry is not None else REGISTRY
+        try:
+            reg.counter(
+                DROPPED_SERIES,
+                "Label-set lookups rejected by the per-family cardinality "
+                "guard (KF_TELEMETRY_MAX_SERIES)",
+                ("metric",),
+            ).labels(self.name).inc()
+        except ValueError:
+            pass  # a colliding user family must not break the guard
+
+    def _default(self):
+        if self.labelnames:
+            raise ValueError(f"{self.name} has labels {self.labelnames}; use .labels()")
+        return self._children[()]
+
+    def remove(self, *labelvalues) -> None:
+        """Drop ONE labelled series from the exposition (label-population
+        churn, e.g. a link destination that left the cluster). No-op when
+        the series never existed; frees a slot under the cardinality cap."""
+        key = tuple(str(v) for v in labelvalues)
+        with self._lock:
+            self._children.pop(key, None)
+
+    def clear_children(self) -> None:
+        """Drop every labelled child (bounds cardinality when the label
+        population churns, e.g. per-peer gauges across elastic resizes).
+        No-op on label-less families (their default child is the metric)."""
+        if not self.labelnames:
+            return
+        with self._lock:
+            self._children.clear()
+
+    def samples(self) -> List[Tuple[str, str, float]]:
+        """Flat (name+labels suffix, label string, value) samples."""
+        out = []
+        with self._lock:
+            items = sorted(self._children.items())
+        for key, child in items:
+            ls = _label_str(self.labelnames, key)
+            out.extend(child._samples(self.name, self.labelnames, key, ls))
+        return out
+
+    def render(self) -> str:
+        lines = [
+            f"# HELP {self.name} {self.help}",
+            f"# TYPE {self.name} {self.kind}",
+        ]
+        for name, ls, value in self.samples():
+            lines.append(f"{name}{ls} {_fmt_value(value)}")
+        return "\n".join(lines)
+
+
+class _CounterChild:
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self, lock: threading.Lock):
+        self._value = 0.0
+        self._lock = lock
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def _samples(self, name, labelnames, key, ls):
+        return [(name, ls, self.value)]
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild(self._lock)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    @property
+    def value(self) -> float:
+        return self._default().value
+
+
+class _GaugeChild:
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self, lock: threading.Lock):
+        self._value = 0.0
+        self._lock = lock
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def _samples(self, name, labelnames, key, ls):
+        return [(name, ls, self.value)]
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild(self._lock)
+
+    def set(self, value: float) -> None:
+        self._default().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default().dec(amount)
+
+    @property
+    def value(self) -> float:
+        return self._default().value
+
+
+class _HistogramChild:
+    __slots__ = ("_counts", "_sum", "_count", "_bounds", "_lock")
+
+    def __init__(self, lock: threading.Lock, bounds: Tuple[float, ...]):
+        self._bounds = bounds
+        self._counts = [0] * (len(bounds) + 1)  # last = +Inf
+        self._sum = 0.0
+        self._count = 0
+        self._lock = lock
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        i = bisect_left(self._bounds, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def quantile(self, q: float) -> float:
+        """Estimated q-quantile (0..1), interpolated within the owning
+        bucket (histogram_quantile semantics). NaN when empty."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        with self._lock:
+            total = self._count
+            counts = list(self._counts)
+        if total == 0:
+            return math.nan
+        rank = q * total
+        seen = 0.0
+        for i, c in enumerate(counts):
+            if seen + c >= rank and c > 0:
+                lo = self._bounds[i - 1] if i > 0 else 0.0
+                hi = self._bounds[i] if i < len(self._bounds) else math.inf
+                if hi == math.inf:
+                    return lo  # open-ended bucket: clamp like Prometheus
+                frac = (rank - seen) / c
+                return lo + (hi - lo) * frac
+            seen += c
+        return self._bounds[-1] if self._bounds else math.nan
+
+    def _samples(self, name, labelnames, key, ls):
+        out = []
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+            s = self._sum
+        cum = 0
+        for bound, c in zip(self._bounds, counts):
+            cum += c
+            le = _label_str(
+                tuple(labelnames) + ("le",), tuple(key) + (_fmt_value(bound),)
+            )
+            out.append((name + "_bucket", le, cum))
+        le = _label_str(tuple(labelnames) + ("le",), tuple(key) + ("+Inf",))
+        out.append((name + "_bucket", le, total))
+        out.append((name + "_sum", ls, s))
+        out.append((name + "_count", ls, total))
+        return out
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(
+        self,
+        name: str,
+        help: str,
+        labelnames: Sequence[str] = (),
+        buckets: Iterable[float] = DEFAULT_BUCKETS,
+    ):
+        bounds = tuple(sorted(float(b) for b in buckets))
+        if not bounds:
+            raise ValueError("histogram needs at least one bucket")
+        self._bounds = bounds
+        super().__init__(name, help, labelnames)
+
+    def _new_child(self):
+        return _HistogramChild(self._lock, self._bounds)
+
+    def observe(self, value: float) -> None:
+        self._default().observe(value)
+
+    def quantile(self, q: float) -> float:
+        return self._default().quantile(q)
+
+    @property
+    def count(self) -> int:
+        return self._default().count
+
+    @property
+    def sum(self) -> float:
+        return self._default().sum
+
+
+class Registry:
+    """Named metric families; get-or-create semantics so any module can
+    declare its metrics idempotently at import or call time."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, _Metric] = {}
+        # extra exposition blocks appended to render() (e.g. the net
+        # monitor's windowed rates, which aren't plain registry samples)
+        self._extra_renderers: List = []
+
+    def _get_or_create(self, cls, name, help, labelnames, **kw):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls) or m.labelnames != tuple(labelnames):
+                    raise ValueError(
+                        f"metric {name!r} re-registered with different "
+                        f"type/labels ({m.kind} {m.labelnames})"
+                    )
+                want_buckets = kw.get("buckets")
+                if want_buckets is not None and tuple(
+                    sorted(float(b) for b in want_buckets)
+                ) != m._bounds:
+                    # as loud as a type mismatch: silently keeping the
+                    # first registrant's buckets would truncate the
+                    # second's range into +Inf with no signal
+                    raise ValueError(
+                        f"histogram {name!r} re-registered with different "
+                        f"buckets ({m._bounds} vs {tuple(want_buckets)})"
+                    )
+                return m
+            m = cls(name, help, labelnames, **kw)
+            m._registry = self  # drop counting lands in the owning registry
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name: str, help: str = "", labelnames: Sequence[str] = ()) -> Counter:
+        return self._get_or_create(Counter, name, help, labelnames)
+
+    def gauge(self, name: str, help: str = "", labelnames: Sequence[str] = ()) -> Gauge:
+        return self._get_or_create(Gauge, name, help, labelnames)
+
+    def histogram(
+        self,
+        name: str,
+        help: str = "",
+        labelnames: Sequence[str] = (),
+        buckets: Iterable[float] = DEFAULT_BUCKETS,
+    ) -> Histogram:
+        return self._get_or_create(
+            Histogram, name, help, labelnames, buckets=buckets
+        )
+
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def add_renderer(self, fn) -> None:
+        """Attach an extra `() -> str` exposition block (idempotent)."""
+        with self._lock:
+            if fn not in self._extra_renderers:
+                self._extra_renderers.append(fn)
+
+    def collect(self) -> Dict[str, List[Tuple[str, str, float]]]:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return {m.name: m.samples() for m in metrics}
+
+    def render(self, include_extras: bool = True) -> str:
+        """Full Prometheus text exposition. include_extras=False skips the
+        attached renderers (for embedders that merge their own block and
+        must not emit a metric family twice)."""
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+            extras = list(self._extra_renderers) if include_extras else []
+        blocks = [m.render() for m in metrics]
+        for fn in extras:
+            try:
+                blocks.append(fn().rstrip("\n"))
+            except Exception as e:  # noqa: BLE001 - one bad renderer must not 500 /metrics
+                from kungfu_tpu_torch.telemetry import log
+
+                log.debug("metrics: extra renderer failed: %s", e)
+        return "\n".join(b for b in blocks if b) + "\n"
+
+    def clear(self) -> None:
+        """Drop every family (tests)."""
+        with self._lock:
+            self._metrics.clear()
+            self._extra_renderers.clear()
+
+
+REGISTRY = Registry()
+
+
+def get_registry() -> Registry:
+    return REGISTRY
+
+
+def counter(name: str, help: str = "", labelnames: Sequence[str] = ()) -> Counter:
+    return REGISTRY.counter(name, help, labelnames)
+
+
+def gauge(name: str, help: str = "", labelnames: Sequence[str] = ()) -> Gauge:
+    return REGISTRY.gauge(name, help, labelnames)
+
+
+def histogram(
+    name: str,
+    help: str = "",
+    labelnames: Sequence[str] = (),
+    buckets: Iterable[float] = DEFAULT_BUCKETS,
+) -> Histogram:
+    return REGISTRY.histogram(name, help, labelnames, buckets=buckets)
+
+
+def render() -> str:
+    return REGISTRY.render()
+
+
+# -- process self-health ------------------------------------------------
+# OOM kills and fd leaks are the failure modes a postmortem most often
+# has to explain; these gauges give it the trend line. Sampled on demand
+# (every /metrics scrape and every dump), not on a timer of their own.
+
+_PROC_START = time.time()
+_PAGE_SIZE = (
+    os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
+)
+
+
+def _rss_bytes() -> Optional[float]:
+    try:
+        with open("/proc/self/statm", "rb") as f:
+            return float(f.read().split()[1]) * _PAGE_SIZE
+    except (OSError, IndexError, ValueError):
+        pass
+    try:  # non-Linux fallback: peak RSS is better than nothing
+        import resource
+        import sys
+
+        maxrss = float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        # ru_maxrss is KiB on Linux/BSD but BYTES on macOS
+        return maxrss if sys.platform == "darwin" else maxrss * 1024
+    except (ImportError, ValueError, OSError):
+        return None
+
+
+def _open_fds() -> Optional[float]:
+    try:
+        return float(len(os.listdir("/proc/self/fd")))
+    except OSError:
+        return None
+
+
+def update_process_health(registry: Optional[Registry] = None) -> Dict[str, float]:
+    """Sample RSS / open fds / thread count / uptime into the registry's
+    ``kungfu_process_*`` gauges; returns what was measured."""
+    reg = registry or REGISTRY
+    out: Dict[str, float] = {}
+    rss = _rss_bytes()
+    if rss is not None:
+        reg.gauge(
+            "kungfu_process_rss_bytes", "Resident set size of this process"
+        ).set(rss)
+        out["rss_bytes"] = rss
+    fds = _open_fds()
+    if fds is not None:
+        reg.gauge(
+            "kungfu_process_open_fds", "Open file descriptors of this process"
+        ).set(fds)
+        out["open_fds"] = fds
+    n_threads = float(threading.active_count())
+    reg.gauge(
+        "kungfu_process_threads", "Live Python threads in this process"
+    ).set(n_threads)
+    out["threads"] = n_threads
+    uptime = max(time.time() - _PROC_START, 0.0)
+    reg.gauge(
+        "kungfu_process_uptime_seconds",
+        "Seconds since this process imported the metrics registry",
+    ).set(uptime)
+    out["uptime_seconds"] = uptime
+    return out

@@ -1,0 +1,275 @@
+"""Span-based tracing with Chrome-trace/Perfetto JSON export.
+
+Port of `kungfu_tpu/telemetry/tracing.py`; `utils/trace.py` re-exports
+it. Named spans are carried in a bounded ring (``KF_TRACE_BUFFER``
+events) — recording is always on, because a span is two perf_counter
+calls, a small tuple and a deque append — plus:
+
+- nesting: each thread keeps a span stack, so events know their depth;
+- attributes: ``span("allreduce", bytes=n)`` attaches args that survive
+  into the Chrome trace's ``args`` field;
+- step scope: spans recorded inside ``step_scope(epoch, round)`` carry a
+  ``step`` arg (the scheduler's worker threads enter the round they run);
+- export: :func:`chrome_trace` renders the ring as a Chrome
+  ``traceEvents`` JSON object (``ph``/``ts``/``dur`` complete events,
+  ``i`` instants) loadable by chrome://tracing and ui.perfetto.dev.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+from kungfu_tpu_torch import knobs
+
+# malformed values warn and keep the default inside the registry, so a
+# typo cannot kill worker startup
+MAX_EVENTS = int(knobs.get("KF_TRACE_BUFFER"))
+
+
+class TraceEvent(NamedTuple):
+    name: str
+    start: float  # perf_counter seconds
+    duration: float  # seconds; 0.0 for instants
+    tid: int
+    depth: int  # nesting depth at record time (0 = top level)
+    phase: str  # "X" complete | "i" instant
+    args: Optional[dict]
+
+
+_lock = threading.Lock()
+_events: "deque[TraceEvent]" = deque(maxlen=MAX_EVENTS)
+_tls = threading.local()
+# every thread's live span stack, keyed by thread ident: open_spans()
+# says what each thread is INSIDE right now (a completed-span ring can't)
+_all_stacks: Dict[int, list] = {}
+
+
+def _stack() -> list:
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+        # registration is once per thread: prune dead threads' entries
+        # here too, so processes that never call open_spans() don't leak
+        # an entry per short-lived thread
+        live = {t.ident for t in threading.enumerate()}
+        me = threading.get_ident()
+        with _lock:
+            for tid in list(_all_stacks):
+                if tid not in live:
+                    del _all_stacks[tid]
+            _all_stacks[me] = st
+    return st
+
+
+def open_spans() -> Dict[str, List[str]]:
+    """Currently-open (entered, not yet exited) span stacks per live
+    thread: ``{"MainThread(140003...)": ["policy.step", "allreduce"]}``.
+    Dead threads' stacks are pruned as a side effect."""
+    live = {t.ident: t.name for t in threading.enumerate()}
+    out: Dict[str, List[str]] = {}
+    with _lock:
+        for tid in list(_all_stacks):
+            if tid not in live:
+                del _all_stacks[tid]
+                continue
+            st = list(_all_stacks[tid])
+            if st:
+                out[f"{live[tid]}({tid})"] = st
+    return out
+
+
+def _append(ev: TraceEvent) -> None:
+    with _lock:
+        _events.append(ev)
+
+
+# ---------------------------------------------------------------------------
+# step context: spans recorded while a (session_epoch, round)
+# scope is active carry it as a `step` arg, so a cross-peer trace merge
+# can group every peer's sched.*/host.*/zero.* spans by training step.
+# Per-thread — the scheduler's worker threads each enter the scope of
+# the round they are executing, which may differ from the round the
+# submitting thread is already producing.
+# ---------------------------------------------------------------------------
+
+_step_tls = threading.local()
+
+
+class _StepScope:
+    __slots__ = ("step", "prev")
+
+    def __init__(self, epoch: int, round_: int):
+        self.step = (int(epoch), int(round_))
+
+    def __enter__(self):
+        self.prev = getattr(_step_tls, "cur", None)
+        _step_tls.cur = self.step
+        return self
+
+    def __exit__(self, *exc):
+        _step_tls.cur = self.prev
+        return False
+
+
+def step_scope(epoch: int, round_: int) -> _StepScope:
+    """Stamp every span/record/instant on this thread with
+    ``step=[epoch, round]`` until exit: ``with step_scope(3, 17): ...``."""
+    return _StepScope(epoch, round_)
+
+
+def current_step() -> Optional[Tuple[int, int]]:
+    """The thread's active (session_epoch, round), or None."""
+    return getattr(_step_tls, "cur", None)
+
+
+def _step_args(args: Optional[dict]) -> Optional[dict]:
+    cur = getattr(_step_tls, "cur", None)
+    if cur is None:
+        return args
+    d = dict(args) if args else {}
+    d.setdefault("step", list(cur))
+    return d
+
+
+class _Span:
+    """Class-based context manager (NOT @contextmanager: spans sit on
+    every collective/transport call and generator CMs cost ~3x more to
+    enter). Records a complete event on exit; nesting depth comes from a
+    per-thread stack."""
+
+    __slots__ = ("name", "args", "t0", "depth")
+
+    def __init__(self, name: str, args: Optional[dict]):
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        st = _stack()
+        self.depth = len(st)
+        st.append(self.name)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        _stack().pop()
+        _append(
+            TraceEvent(
+                self.name, self.t0, dt, threading.get_ident(), self.depth,
+                "X", _step_args(self.args),
+            )
+        )
+        return False
+
+
+def span(name: str, **args) -> _Span:
+    """Time a scope: ``with span("allreduce", bytes=n): ...``."""
+    return _Span(name, args or None)
+
+
+def record(name: str, duration_s: float, **args) -> None:
+    """Record an externally-timed span ending now (back-compat with the
+    old trace.record call sites)."""
+    _append(
+        TraceEvent(
+            name,
+            time.perf_counter() - duration_s,
+            duration_s,
+            threading.get_ident(),
+            len(_stack()),
+            "X",
+            _step_args(args or None),
+        )
+    )
+
+
+def instant(name: str, **args) -> None:
+    """Record a point-in-time event (resize, strategy switch, ...)."""
+    _append(
+        TraceEvent(
+            name, time.perf_counter(), 0.0, threading.get_ident(),
+            len(_stack()), "i", _step_args(args or None),
+        )
+    )
+
+
+def events(prefix: str = "") -> List[Tuple[str, float, float]]:
+    """(name, start, duration) tuples — the legacy utils.trace shape."""
+    return [
+        (e.name, e.start, e.duration) for e in full_events(prefix)
+    ]
+
+
+def full_events(prefix: str = "") -> List[TraceEvent]:
+    with _lock:
+        evs = list(_events)
+    if prefix:
+        evs = [e for e in evs if e.name.startswith(prefix)]
+    return evs
+
+
+def clear() -> None:
+    with _lock:
+        _events.clear()
+
+
+def summary_ms(prefix: str = "") -> Dict[str, float]:
+    """Total duration per span name (ms), filtered by prefix."""
+    out: Dict[str, float] = {}
+    for e in full_events(prefix):
+        out[e.name] = out.get(e.name, 0.0) + e.duration * 1e3
+    return {k: round(v, 1) for k, v in out.items()}
+
+
+def chrome_trace(prefix: str = "") -> dict:
+    """The buffer as a Chrome trace-event JSON object.
+
+    Timestamps are perf_counter microseconds (a process-relative
+    monotonic epoch — exactly what the trace viewers expect).
+    """
+    pid = os.getpid()
+    trace_events = []
+    for e in full_events(prefix):
+        ev = {
+            "name": e.name,
+            "ph": e.phase,
+            "ts": e.start * 1e6,
+            "pid": pid,
+            "tid": e.tid,
+            "cat": "kungfu",
+        }
+        if e.phase == "X":
+            ev["dur"] = e.duration * 1e6
+        else:
+            ev["s"] = "t"  # thread-scoped instant
+        args = dict(e.args) if e.args else {}
+        args["depth"] = e.depth
+        ev["args"] = args
+        trace_events.append(ev)
+    return {
+        "traceEvents": trace_events,
+        "displayTimeUnit": "ms",
+        # clock anchors for offline cross-process merges: ts values are
+        # perf_counter us, rendered at perf_now_us == wall_time_s
+        "metadata": {
+            "pid": pid,
+            "perf_now_us": time.perf_counter() * 1e6,
+            "wall_time_s": time.time(),
+        },
+    }
+
+
+def chrome_trace_json(prefix: str = "") -> str:
+    return json.dumps(chrome_trace(prefix))
+
+
+def export_chrome(path: str, prefix: str = "") -> str:
+    """Write the Chrome trace JSON to `path`; returns the path."""
+    with open(path, "w") as f:
+        f.write(chrome_trace_json(prefix))
+    return path

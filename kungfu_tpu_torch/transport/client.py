@@ -10,6 +10,13 @@ A colocated peer's large payloads ride a shared-memory ring (`shm`);
 an arena that tmpfs cannot back degrades that connection to socket
 frames, as the reference's transport does. `frames` counts the frames
 this client sent each way, so a reader knows which path a walk took.
+
+With metrics on (`KF_TELEMETRY=metrics` or `KF_CONFIG_ENABLE_MONITORING`)
+every send feeds the net monitor (egress bytes and messages per peer)
+and the `kungfu_transport_send_seconds` histogram, every ping the
+`kungfu_transport_rtt_seconds` one. The gate is read when the client is
+built and again at every epoch (`reset_connections`); with metrics off
+the send path is untouched.
 """
 
 from __future__ import annotations
@@ -68,12 +75,36 @@ class Client:
         # frames sent through the shm ring and as whole socket frames
         self.frames = {"shm": 0, "socket": 0}
         self._frames_lock = threading.Lock()
+        self._resolve_telemetry()
+
+    def _resolve_telemetry(self) -> None:
+        """Egress accounting (parity: monitor.Egress called from the
+        connection send path, srcs/go/monitor/monitor.go:28-72) and the
+        latency histograms, under the metrics gate."""
+        from kungfu_tpu_torch.monitor import net as _net
+
+        self._monitor = _net.get_monitor() if _net.enabled() else None
+        self._send_hist = self._rtt_hist = None
+        if self._monitor is not None:
+            from kungfu_tpu_torch.telemetry import metrics as _tmetrics
+
+            self._send_hist = _tmetrics.histogram(
+                "kungfu_transport_send_seconds",
+                "Host-transport send latency (frame + flush)",
+            )
+            self._rtt_hist = _tmetrics.histogram(
+                "kungfu_transport_rtt_seconds",
+                "Ping round-trip time per peer",
+                ("peer",),
+            )
 
     def set_token(self, token: int) -> None:
         self._token = token
 
     def reset_connections(self) -> None:
-        """Drop all pooled connections (new epoch after a resize)."""
+        """Drop all pooled connections (new epoch after a resize), and
+        re-read the telemetry gate for the new epoch."""
+        self._resolve_telemetry()
         with self._pool_lock:
             for sock in self._pool.values():
                 try:
@@ -111,6 +142,7 @@ class Client:
             )
         except shm.ArenaSpaceError as e:
             trace.record("transport.shm_alloc_fail", 0.0)
+            shm.count_alloc_failure()
             log.warn("shm arena unavailable, using sockets to %s: %s", peer, e)
             self._arenas[key] = None
             return None
@@ -207,14 +239,22 @@ class Client:
                 if shm_conn:
                     self._fresh_arena(key)
                 send_message(sock, wire_message())
-            trace.record("transport.send", time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            trace.record("transport.send", dt)
+            if self._send_hist is not None:
+                self._send_hist.observe(dt)
+        if self._monitor is not None:
+            self._monitor.sent(peer, data_len)
 
     def ping(self, peer: PeerID, timeout: float = 2.0) -> bool:
         try:
+            t0 = time.perf_counter()
             sock = socket.create_connection((peer.host, peer.port), timeout=timeout)
             send_header(sock, ConnType.PING, self.self_id.host, self.self_id.port, 0)
             recv_ack(sock)
             sock.close()
+            if self._rtt_hist is not None:
+                self._rtt_hist.labels(str(peer)).observe(time.perf_counter() - t0)
             return True
         except OSError:
             return False

@@ -27,6 +27,7 @@ from kungfu_tpu_torch.transport.message import (
     Message,
     _recv_exact,
     _recv_exact_into,
+    nbytes_of,
     recv_frame_header,
     recv_header,
     recv_message,
@@ -156,6 +157,11 @@ class Server:
             if conn_type == ConnType.PING or handler is None:
                 conn.close()
                 return
+            # ingress accounting (parity: monitor.Ingress), under the
+            # metrics gate
+            from kungfu_tpu_torch.monitor import net as _net
+
+            monitor = _net.get_monitor() if _net.enabled() else None
 
             def shm_region(desc):
                 """Resolve a descriptor frame to (view, release)."""
@@ -192,6 +198,8 @@ class Server:
                         release()
                         msg = Message(name=msg.name, data=buf,
                                       flags=msg.flags & ~Flags.SHM_REF)
+                    if monitor is not None:
+                        monitor.received(src, nbytes_of(msg.data))
                     handler(src, msg)
             else:
                 finish_sink = endpoint.finish_sink
@@ -201,11 +209,14 @@ class Server:
                         desc = _recv_exact(conn, data_len)
                         view, release = shm_region(desc)
                         flags &= ~Flags.SHM_REF
+                        data_len = nbytes_of(view)  # before the borrow ends
                         # always borrow — even when a sink is parked, the
                         # walk reduces straight from the mapped ring, so a
                         # transport-thread copy here would be pure waste
                         handler(src, Message(name=name, data=view, flags=flags,
                                              release=release))
+                        if monitor is not None:
+                            monitor.received(src, data_len)
                         continue
                     sink = take_sink(src, name, data_len) if data_len else None
                     if sink is not None:
@@ -220,6 +231,8 @@ class Server:
                     else:
                         data = _recv_exact(conn, data_len) if data_len else b""
                         handler(src, Message(name=name, data=data, flags=flags))
+                    if monitor is not None:
+                        monitor.received(src, data_len)
         except (ConnectionError, OSError):
             pass
         except (ValueError, UnicodeDecodeError, struct.error):

@@ -69,6 +69,22 @@ class ArenaSpaceError(OSError):
     sender can degrade to the socket path instead."""
 
 
+def count_alloc_failure() -> None:
+    """Count an arena-allocation failure (its own series, NOT
+    kungfu_shm_fallback_total: that counter means "the receiver is
+    behind", and a full /dev/shm must not show up in it)."""
+    from kungfu_tpu_torch.telemetry import config as _tcfg
+
+    if _tcfg.metrics_enabled():
+        from kungfu_tpu_torch.telemetry import metrics as _tm
+
+        _tm.counter(
+            "kungfu_shm_alloc_failures_total",
+            "Arena allocations refused (tmpfs full); connection degraded "
+            "to socket frames",
+        ).inc()
+
+
 def arena_path(
     recv_host: str, recv_port: int, send_host: str, send_port: int, conn_type: int
 ) -> str:
@@ -97,6 +113,22 @@ class SenderArena:
     def __init__(self, path: str, capacity: int = DEFAULT_CAPACITY):
         self.path = path
         self.capacity = capacity
+        # ring-vs-socket accounting: a rising fallback share means the
+        # receiver is chronically behind; gated once per arena
+        self._m_writes = self._m_fallback = None
+        from kungfu_tpu_torch.telemetry import config as _tcfg
+
+        if _tcfg.metrics_enabled():
+            from kungfu_tpu_torch.telemetry import metrics as _tm
+
+            self._m_writes = _tm.counter(
+                "kungfu_shm_writes_total",
+                "Payloads delivered via the shared-memory ring",
+            )
+            self._m_fallback = _tm.counter(
+                "kungfu_shm_fallback_total",
+                "Ring-full fallbacks to the socket frame path",
+            )
         # O_EXCL after unlink: the path is predictable, so opening an
         # existing file could map another local user's pre-planted file
         # (mode 0o600 only applies at creation) — never reuse one
@@ -146,16 +178,22 @@ class SenderArena:
         path's kernel flow control is the right way to wait for it."""
         cap = self.capacity
         if nbytes > cap:
+            # deliberate routing (the payload can never fit), not
+            # backpressure: not a fallback
             return None
         off = self._alloc % cap
         pad = cap - off if off + nbytes > cap else 0
         advance = pad + nbytes
         if self._alloc + advance - int(self._seq[1]) > cap:
+            if self._m_fallback is not None:
+                self._m_fallback.inc()
             return None
         start = 0 if pad else off
         copy_bytes(self._data[start:start + nbytes], payload)
         self._alloc += advance
         self._seq[0] = self._alloc
+        if self._m_writes is not None:
+            self._m_writes.inc()
         return DESC.pack(start, nbytes, advance)
 
     def close(self) -> None:

@@ -1000,3 +1000,40 @@ def test_pair_averagings_f32_average_on_the_card_is_the_cpu_formula(dtype):
     pa._average(leaves, [o])  # the fetched leaf arrives on the host
     assert leaves[0].device.type == "cuda" and leaves[0].dtype == dtype
     assert torch.equal(leaves[0].cpu(), want)
+
+
+@pytest.mark.cuda
+def test_the_monitors_gauges_hold_the_values_read_from_the_card():
+    """publish_noise_scale / publish_gradient_variance read the card's
+    scalars once and set kungfu_noise_scale (and its EMAs) and
+    kungfu_gradient_variance to exactly those values."""
+    _need_card()
+    from kungfu_tpu_torch.monitor.grad_variance import publish_gradient_variance
+    from kungfu_tpu_torch.monitor.noise_scale import (gns_init, gns_update, noise_scale,
+                                                      publish_noise_scale)
+    from kungfu_tpu_torch.telemetry import metrics
+
+    metrics.get_registry().clear()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        state = gns_init("cuda")
+        for _ in range(3):
+            local = [torch.randn(257, device="cuda", generator=gen) for _ in range(2)]
+            avg = [x * 0.5 for x in local]
+            state = gns_update(state, local, avg, 8, 32)
+        assert state.g2_ema.device.type == "cuda"
+        got = publish_noise_scale(state)
+        assert got == float(noise_scale(state).cpu())
+        assert metrics.get_registry().get("kungfu_noise_scale").value == got
+        assert metrics.get_registry().get("kungfu_noise_scale_g2_ema").value == float(
+            state.g2_ema.cpu())
+        assert metrics.get_registry().get("kungfu_noise_scale_s_ema").value == float(
+            state.s_ema.cpu())
+
+        class _Monitored:
+            variance = torch.tensor(0.125, device="cuda") * 3
+
+        assert publish_gradient_variance(_Monitored()) == 0.375
+        assert metrics.get_registry().get("kungfu_gradient_variance").value == 0.375
+    finally:
+        metrics.get_registry().clear()

@@ -41,7 +41,11 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       # checkpoints, PairAveraging, the hierarchical all-reduce
                       "elastic.checkpoint", "examples.adaptive_batch", "bench_resize",
                       "optimizers.pair_averaging", "examples.cyclegan_pair",
-                      "ops.hierarchical", "examples.multislice_train")
+                      "ops.hierarchical", "examples.multislice_train",
+                      # the telemetry core and the network monitors
+                      "telemetry", "telemetry.config", "telemetry.metrics",
+                      "telemetry.tracing", "telemetry.audit", "telemetry.promparse",
+                      "telemetry.http", "monitor.net", "monitor.latency")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys

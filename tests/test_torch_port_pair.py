@@ -8,7 +8,12 @@ for bit, 5 SGD steps within 1e-6|p| + 1e-7); `_unpack_other` on each
 kind of malformed blob; the f32 average's formula per dtype; and the
 CycleGAN's first 20 steps from the reference's weights. Each world's
 prefetches start only once both peers have published, so every step
-averages with the other's newest model in both worlds alike."""
+averages with the other's newest model in both worlds alike. The mixed
+worlds run with metrics forced on in both packages: each package's
+`kungfu_pair_avg_steps_total` must count every step as averaged and
+none as plain, so a silent plain step shows."""
+
+import contextlib
 
 import struct
 import threading
@@ -26,10 +31,14 @@ import torch
 from kungfu_tpu.optimizers.pair_averaging import PairAveraging as RPairAveraging
 from kungfu_tpu.peer import Peer as RPeer
 from kungfu_tpu.runner.env import parse_config_from_env as rparse_config_from_env
+from kungfu_tpu.telemetry import config as rtconfig
+from kungfu_tpu.telemetry import metrics as rtmetrics
 from kungfu_tpu_torch.base.serialize import pack_leaves, unpack_leaves
 from kungfu_tpu_torch.optimizers.pair_averaging import PairAveraging, _pack_host
 from kungfu_tpu_torch.peer import Peer
 from kungfu_tpu_torch.runner.env import parse_config_from_env
+from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import metrics as tmetrics
 
 from test_torch_port_worlds import make_world, run_all, small_arenas  # noqa: F401 - autouse
 
@@ -287,9 +296,42 @@ class _Worker:
                 for k, v in self.params.items()}
 
 
+@contextlib.contextmanager
+def _metrics_on():
+    """Both packages' metrics forced on, over registries cleared before
+    and after."""
+    both = ((tconfig, tmetrics), (rtconfig, rtmetrics))
+    for cfg, reg in both:
+        cfg.refresh(frozenset({"metrics"}))
+        reg.get_registry().clear()
+    try:
+        yield
+    finally:
+        for cfg, reg in both:
+            cfg.refresh(None)
+            reg.get_registry().clear()
+
+
+def _outcomes(reg) -> dict:
+    fam = reg.get_registry().get("kungfu_pair_avg_steps_total")
+    return {} if fam is None else {o: fam.labels(o).value for o in ("avg", "plain")}
+
+
 def _run_world(kinds, dtype, lr, steps, failed):
     """Each step's values on every rank; each rank's failed fetches are
-    added to `failed[kind]`, the package that made them."""
+    added to `failed[kind]`, the package that made them. Each package's
+    kungfu_pair_avg_steps_total must count every step of its ranks as
+    averaged, none as plain."""
+    with _metrics_on():
+        trail = _run_world_observed(kinds, dtype, lr, steps, failed)
+        for kind, reg in (("port", tmetrics), ("ref", rtmetrics)):
+            n = kinds.count(kind)
+            want = {"avg": float(n * steps), "plain": 0.0} if n else {}
+            assert _outcomes(reg) == want, (kind, failed[kind])
+    return trail
+
+
+def _run_world_observed(kinds, dtype, lr, steps, failed):
     world, ws = make_world(kinds), []
     try:
         ws = [_Worker(p, lr, *inp) for p, inp in zip(world, _inputs(dtype, steps))]

@@ -94,8 +94,11 @@ def test_registry_and_doc():
         "KF_CONFIG_ASYNC_QUEUE",
         # the runners' (kfrun, monitored, standby)
         "KF_RUNNER_PID", "KF_RECOVER_EPOCH", "KF_MONITOR_ADDR", "KF_STANDBY_FIFO",
-        "KF_STANDBY_PRELOAD", "KF_ACTIVATED_TS"}
-    assert len(knobs.names()) == 39
+        "KF_STANDBY_PRELOAD", "KF_ACTIVATED_TS",
+        # the telemetry plane's
+        "KF_TELEMETRY", "KF_TELEMETRY_MAX_SERIES", "KF_TELEMETRY_SPAN_SAMPLE",
+        "KF_TRACE_BUFFER", "KF_CONFIG_ENABLE_MONITORING"}
+    assert len(knobs.names()) == 44
     doc = knobs.render_doc()
     theirs = set(rknobs.render_doc().splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
