@@ -117,6 +117,40 @@ Phases, each printing one JSON line:
            three bitwise equal after every step and across ranks, ZeRO's
            state at most a quarter of the parameters plus slack; step ms
            and the scheduler's stats, and the hooks at the default cap;
+  telemetry  4 workers: S-SGD with telemetry off and on in turns, then
+           ZeroSGD with it on; rank 0 scrapes every rank's /metrics, /trace
+           and /audit between steps;
+  replan   measured topology: 4 workers on card 0, ResNet-50 at 16 images
+           a rank, ZeroSGD(0.1, 0.9) over the segmented f32 ring on sockets
+           (KF_CONFIG_SHM=0), metrics on, a ledger window of 3 steps after
+           1 settle step, each leg a cluster epoch. An unshaped calibration
+           picks the rate at which the bytes of edge rank 1 -> 2 take 4x
+           the unshaped walk. (a) KF_SHAPE_LINKS shapes that edge and
+           ReplanPolicy (every 4 steps, patience 2; reorder only, at a
+           predicted 2x) runs 16 steps in a PolicyRunner; (b) ZeRO-1 with
+           api.check_replan after step 2 (reordered and weighted), 6 steps,
+           and (b2) the replicated update with the same plan adopted after
+           the same step; (c) two virtual hosts {0, 1} and {2, 3} (1 ms and
+           a cap on every cross-host edge, a shared uplink a host),
+           check_replan after step 2 adopts a two-level plan, rank 3 is
+           demoted after step 4 and promoted after step 6, 8 steps. Gates:
+           parameters bitwise equal across ranks after every step; one
+           adoption in (a), with one digest, routing around 1 -> 2, graded
+           `delivered` on every rank's /decisions, one audit event, the
+           re-plan counter at 1, rank 1's slowest link the shaped one, the
+           shaped walk at least 3x the unshaped; (b) bitwise (a) before the
+           flip and bitwise (b2) at every step, the plan's averaged
+           gradient past the flip within 2 (k - 1) 2^-24 sum|g| + 2^-126
+           (over k) of the rank-order ring's, ZeRO's state at most its
+           weighted share plus slack; (c) the plan's groups the virtual
+           hosts, demotion for exactly two steps, peer_demoted and
+           peer_promoted records on every rank, the two-level sum within
+           the f32 limit of the card's; the first walk after each leg's
+           first adoption bitwise equal to its replay through the plain
+           twins (ring_replay with the plan's order and weights,
+           hier_replay). Prints the matrices, predicted against realized
+           gains, step and walk ms before and after, the rounds' ms (vote,
+           matrix, digest and listeners), heads' and members' wire bytes;
   elastic  BASELINE config 5's resize path: the port's kfrun
            (`python -m kungfu_tpu_torch.runner.cli -w`, a built-in config
            server, one warm standby) starts 2 workers of this script
@@ -1454,23 +1488,27 @@ def _wire_layout(bounds, wire):
     return ("uint8" if q else "uint16"), offs
 
 
-def ring_replay(bufs, ops, wire=None) -> list:
+def ring_replay(bufs, ops, wire=None, order=None, weights=None) -> list:
     """The segmented ring all-reduce (SUM) of `bufs`, k one-dimensional f32
-    buffers, one a simulated peer's, replayed in one process as the host
-    engine's walk moves segments between peers: k - 1 reduce-scatter steps
-    (reduce_segment, or with a wire: the sender encodes its partial, the
-    receiver decode-accumulates it), then k - 1 all-gather steps
+    buffers, one a simulated peer's (by rank), replayed in one process as the
+    host engine's walk moves segments between peers: k - 1 reduce-scatter
+    steps (reduce_segment, or with a wire: the sender encodes its partial,
+    the receiver decode-accumulates it), then k - 1 all-gather steps
     (copy_segment; with a wire, each owner encodes its reduced segment once,
     the encodings are relayed as they are, and every peer, owner included,
-    decodes every segment at the end). Each buffer ends holding the sum;
-    returns `bufs`. `ops` is `host_ops()`'s namespace, or the tests' for the
-    JAX package."""
+    decodes every segment at the end). `order` (ranks in ring order) and
+    `weights` (per-segment) replay an adopted measured-topology plan: each
+    position sends to the next position's rank, over the weighted segment
+    bounds. Each buffer ends holding the sum; returns `bufs`. `ops` is
+    `host_ops()`'s namespace, or the tests' for the JAX package."""
     from kungfu_tpu_torch.base.ops import ReduceOp
     from kungfu_tpu_torch.plan.topology import gen_segmented_schedule, segment_bounds
 
     k, n = len(bufs), len(bufs[0])
-    bounds = segment_bounds(n, k)
-    scheds = [gen_segmented_schedule(list(range(k)), i) for i in range(k)]
+    order = list(range(k)) if order is None else list(order)
+    bounds = segment_bounds(n, k, weights)
+    scheds = [gen_segmented_schedule(order, p) for p in range(k)]
+    at = [bufs[r] for r in order]  # the buffer at each ring position
     if wire is not None:
         dtype, offs = _wire_layout(bounds, wire)
         wbufs = [ops.empty(offs[-1], dtype) for _ in range(k)]
@@ -1481,18 +1519,18 @@ def ring_replay(bufs, ops, wire=None) -> list:
             if e == b:
                 continue
             if wire is None:
-                ops.reduce_segment(bufs[dst], b, e, bufs[i][b:e], ReduceOp.SUM)
+                ops.reduce_segment(at[dst], b, e, at[i][b:e], ReduceOp.SUM)
             else:
                 msg = wbufs[i][offs[seg]:offs[seg + 1]]
-                ops.encode(msg, bufs[i][b:e], wire)
-                ops.decode_accumulate(bufs[dst], b, e, msg, wire, ReduceOp.SUM)
+                ops.encode(msg, at[i][b:e], wire)
+                ops.decode_accumulate(at[dst], b, e, msg, wire, ReduceOp.SUM)
     if wire is not None:
         for i in range(k):
             seg = scheds[i].owned_segment
             b, e = bounds[seg]
             if e > b:
-                ops.encode(wbufs[i][offs[seg]:offs[seg + 1]], bufs[i][b:e], wire)
-    src = bufs if wire is None else wbufs
+                ops.encode(wbufs[i][offs[seg]:offs[seg + 1]], at[i][b:e], wire)
+    src = at if wire is None else wbufs
     lim = bounds if wire is None else list(zip(offs, offs[1:]))
     for s in range(k - 1):
         for i in range(k):
@@ -1504,7 +1542,32 @@ def ring_replay(bufs, ops, wire=None) -> list:
         for i in range(k):
             for seg, (b, e) in enumerate(bounds):
                 if e > b:
-                    ops.decode(bufs[i][b:e], wbufs[i][offs[seg]:offs[seg + 1]], wire)
+                    ops.decode(at[i][b:e], wbufs[i][offs[seg]:offs[seg + 1]], wire)
+    return bufs
+
+
+def hier_replay(bufs, ops, groups, heads, demoted=()) -> list:
+    """The two-level all-reduce (SUM, f32) of an adopted HierPlan over
+    `bufs` (one by rank), replayed in one process as the host engine's
+    `_run_hier` walks it: each head adds its group's contributing members'
+    buffers (a host star reduce; with one member, the order of an IEEE sum
+    of two cannot matter), the heads run the segmented ring in their
+    listed order, and each head's result is copied to every member of its
+    group, demoted ranks included. Returns `bufs`."""
+    from kungfu_tpu_torch.base.ops import ReduceOp
+
+    n = len(bufs[0])
+    for head, grp in zip(heads, groups):
+        members = [r for r in grp if r != head and r not in demoted]
+        if len(members) > 1:
+            raise ValueError("a star reduce of several members sums in arrival order")
+        for r in members:
+            ops.reduce_segment(bufs[head], 0, n, bufs[r], ReduceOp.SUM)
+    ring_replay([bufs[h] for h in heads], ops)
+    for head, grp in zip(heads, groups):
+        for r in grp:
+            if r != head:
+                ops.copy_segment(bufs[r], 0, n, bufs[head])
     return bufs
 
 
@@ -2611,6 +2674,544 @@ def telemetry_phase(smi: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+RP_RANKS = 4
+RP_DEADLINE_S = 600
+RP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_rp"
+RP_LR, RP_MOMENTUM = 0.1, 0.9
+RP_CALIB_STEPS = 3  # unshaped steps the shaped edge's rate is chosen from
+RP_SLOWDOWN = 4.0  # the rate makes the unshaped walk's bytes on the edge take this much longer
+RP_MIN_SLOWDOWN = 3.0  # gate: the shaped rank-order walk at least this much longer
+RP_A_STEPS, RP_A_INTERVAL, RP_A_PATIENCE = 16, 4, 2
+# leg (a) reorders only, and only for a predicted gain of 2x: the shaped
+# edge predicts ~RP_SLOWDOWN, while the estimates of unshaped loopback
+# edges differ by up to 1.5x between rounds, enough to re-pair the ring
+# at the policy's default 1.05 (a weight refinement passes no gain bar)
+RP_A_MODE, RP_A_MIN_GAIN = "ring", 2.0
+RP_B_MODE = "auto"  # leg (b) adopts once, by api.check_replan: reordered and weighted
+RP_B_STEPS, RP_B_FLIP = 6, 2  # leg (b) adopts after this step
+RP_C_STEPS, RP_C_FLIP, RP_C_DEMOTE, RP_C_PROMOTE = 8, 2, 4, 6  # leg (c)'s rounds, after these steps
+RP_C_DEMOTED = 3
+RP_C_LAT_MS = 1
+RP_C_CROSS_BW = 64 << 20  # bytes/s on every cross-host edge of leg (c)
+RP_C_UPLINK_BW = 96 << 20  # each virtual host's shared uplink
+RP_KNOBS = dict(KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES=0, KF_CONFIG_WIRE="off",
+                KF_CONFIG_SHM="0", KF_CONFIG_ASYNC="off", KF_TELEMETRY="metrics",
+                KF_DECISION_WINDOW=3, KF_DECISION_SETTLE=1)
+
+
+class _RoundTap:
+    """Instance wrappers on one session: the ms of each re-plan or demotion
+    round and of its parts (vote, matrix exchange, compute-fraction
+    exchange, the adoption's digest and listeners), the matrices it
+    exchanged, and the ms of every bucket walk; the first walk after the
+    first adoption is captured (its inputs and outputs)."""
+
+    def __init__(self, sess):
+        self.sess = sess
+        self.walk_ms, self.rounds, self.matrices = [], [], []
+        self.capture = None
+        self._arm = False
+        self._part = {}
+        for name in ("measured_matrix", "measured_compute_frac", "adopt_replan"):
+            self._wrap_part(name)
+        for name in ("check_replan", "check_demote"):
+            self._wrap_round(name)
+        walk = sess._allreduce_ws
+
+        def tapped(w, *a, **kw):
+            arm, self._arm = self._arm, False
+            before = w.send.detach().clone() if arm else None
+            t0 = time.perf_counter()
+            out = walk(w, *a, **kw)
+            self.walk_ms.append((time.perf_counter() - t0) * 1e3)
+            if arm:
+                self.capture = (before, w.recv.detach().clone())
+            return out
+
+        sess._allreduce_ws = tapped
+
+    def _wrap_part(self, name):
+        fn = getattr(self.sess, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self._part[name] = self._part.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            if name == "measured_matrix":
+                self.matrices.append(out.tolist())
+            elif name == "adopt_replan" and self.capture is None:
+                self._arm = True
+            return out
+
+        setattr(self.sess, name, timed)
+
+    def _wrap_round(self, name):
+        fn = getattr(self.sess, name)
+
+        def timed(*a, **kw):
+            self._part = {}
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            total = (time.perf_counter() - t0) * 1e3
+            parts = dict(self._part)
+            self.rounds.append({"round": name, "ms": total, "adopted": out is not None,
+                                "matrix_ms": parts.get("measured_matrix", 0.0),
+                                "compute_frac_ms": parts.get("measured_compute_frac", 0.0),
+                                "adopt_ms": parts.get("adopt_replan", 0.0),
+                                "vote_ms": total - sum(parts.values())})
+            return out
+
+        setattr(self.sess, name, timed)
+
+
+def _rp_epoch(peer, **env) -> None:
+    """A fresh cluster epoch under `env` (None unsets; the client reads
+    KF_SHAPE_LINKS again at the epoch), with an empty link table and
+    ledger, so each leg measures and grades itself."""
+    from kungfu_tpu_torch.telemetry import decisions
+    from kungfu_tpu_torch.telemetry import link as tlink
+
+    for key, value in env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = str(value)
+    tlink.get_table().clear()
+    decisions.reset_ledger()
+    peer.cluster_version += 1
+    peer._update_to(peer.config.peers)
+
+
+def _rp_get(peer, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{peer.self_id.port + 10000}{path}",
+                                timeout=30) as r:
+        return r.read().decode()
+
+
+def _rp_train(leg: str, rank: int, peer, batches, steps: int, after_step=None, policies=(),
+              keep_step: int = 0) -> dict:
+    """`steps` ZeroSGD(0.1, 0.9) steps of ResNet-50 from the seed-0
+    initialization on this rank's batches under a PolicyRunner (which feeds
+    the ledger each step's time): the replicated update unless
+    KF_CONFIG_ZERO is on. Per step the parameters' digest, the step's ms
+    and its walks' ms, the plan's digest; at `keep_step` the local
+    gradient's |g| and the averaged gradient (replicated mode). Then what
+    the gates read of the leg on this rank: its /decisions, the /metrics
+    families the phase names, its audit events since the leg began, the
+    plan, the wire bytes and the rounds' times. `after_step(step, sess,
+    opt)` runs at each step boundary on every rank alike."""
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch import torch as kf
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.plan import replan as rp
+    from kungfu_tpu_torch.policy import PolicyRunner
+    from kungfu_tpu_torch.telemetry import audit, promparse
+
+    mark = max([r["seq"] for r in audit.to_json()], default=-1)
+    sess = peer.current_session()
+    tap = _RoundTap(sess)
+    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), resolve_device())
+    params = list(model.parameters())
+    opt = kf.ZeroSGDOptimizer(model, lr=RP_LR, momentum=RP_MOMENTUM, name=f"rp{leg}")
+    rec = {"digests": [], "step_ms": [], "walk_ms": [], "plan_digests": []}
+    kept = {}
+    with PolicyRunner(list(policies), batch_size=OPT_BATCH) as runner:
+        for step in range(1, steps + 1):
+            n_walks = len(tap.walk_ms)
+            torch.cuda.synchronize()
+            with runner.step():
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                resnet_loss(model, batches[step - 1]).backward()
+                if step == keep_step:
+                    kept["local_abs"] = torch.cat([p.grad.detach().reshape(-1).abs().cpu()
+                                                   for p in params])
+                opt.step()
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["walk_ms"].append(sum(tap.walk_ms[n_walks:]))
+            rec["digests"].append(_digest(torch.cat([p.detach().reshape(-1) for p in params])))
+            if step == keep_step and opt._mode == "replicated":
+                kept["avg"] = torch.cat([p.grad.detach().reshape(-1).cpu() for p in params])
+            if after_step is not None:
+                after_step(step, sess, opt)
+            rec["plan_digests"].append(rp.plan_digest(sess.ring_plan()).hex())
+            if tap.capture is not None and "capture_step" not in rec:
+                rec["capture_step"] = step  # the step whose first walk it was
+                torch.save({"in": tap.capture[0], "out": tap.capture[1]},
+                           RP_OUT / f"{leg}_walk{rank}.pt")
+    rec["mode"] = opt._mode
+    samples = promparse.parse_text(_rp_get(peer, "/metrics"))
+    rec["decisions"] = json.loads(_rp_get(peer, "/decisions"))["decisions"]
+    rec["replans_total"] = promparse.sample_value(samples, "kungfu_topology_replans_total")
+    rec["link_bw"] = {dict(s.labels)["dst"]: s.value for s in samples
+                      if s.name == "kungfu_link_bandwidth_bytes_per_second"}
+    rec["efficiency"] = {dict(s.labels)["strategy"]: s.value for s in samples
+                         if s.name == "kungfu_collective_efficiency_ratio"}
+    rec["roles"] = [dict(dict(s.labels), group=s.value) for s in samples
+                    if s.name == "kungfu_topology_ring_role"]
+    rec["audit"] = [r for r in audit.to_json() if r["seq"] > mark
+                    and r["kind"] in ("topology_replanned", "decision_outcome")]
+    plan, hier = sess.ring_plan(), sess.hier_plan()
+    rec["plan"] = None if plan is None else {"order": list(plan.order), "gain": plan.gain,
+                                             "weights": plan.weights}
+    rec["hier"] = None if hier is None else {"groups": [list(g) for g in hier.groups],
+                                             "heads": list(hier.heads)}
+    rec["wire_bytes"] = {"/".join(key): v for key, v in sess.wire_bytes.items()}
+    rec["rounds"], rec["matrices"] = tap.rounds, tap.matrices
+    rec["agreed"] = sess.bytes_consensus("".join(rec["digests"]).encode(), f"rp:{leg}")
+    return rec, kept
+
+
+def _replan_rank(rank: int, specs) -> dict:
+    """One worker of the replan phase: a Peer from kfrun's environment on
+    card 0, ResNet-50 at 16 images of 224² a rank, ZeroSGD(0.1, 0.9) over
+    the host plane's segmented ring in f32 over sockets, each leg a
+    cluster epoch of its own: an unshaped calibration, then (a) the shaped
+    edge rank 1 -> 2 with ReplanPolicy driving the re-plan, (b) ZeRO-1
+    across a flip by api.check_replan, (b2) the replicated update across
+    the same flip, (c) two virtual hosts, a two-level plan, a demotion and
+    a promotion."""
+    _worker_env(rank, specs, **RP_KNOBS, KF_TELEMETRY_DIR=str(RP_OUT))
+    for knob in ("KF_SHAPE_LINKS", "KF_TEST_SLOW_EDGE", "KF_CONFIG_REPLAN", "KF_DECISION_KEEP",
+                 "KF_DECISION_PATIENCE", "KF_DECISION_REGRESS_RATIO",
+                 "KF_REPLAN_DEMOTE_PATIENCE", "KF_LINK_BW_MIN_BYTES", "KF_LINK_EWMA_ALPHA"):
+        os.environ.pop(knob, None)
+    import torch
+
+    from kungfu_tpu_torch import api, resolve_device
+    from kungfu_tpu_torch.peer import get_default_peer
+    from kungfu_tpu_torch.plan.topology import gen_segmented_schedule
+    from kungfu_tpu_torch.policy import ReplanPolicy
+    from kungfu_tpu_torch.transport import shaping
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    device = resolve_device()
+    k = len(specs)
+    gen = torch.Generator(device=device).manual_seed(900 + rank)
+    batches = [(torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                            generator=gen),
+                torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+               for _ in range(max(RP_A_STEPS, RP_B_STEPS, RP_C_STEPS))]
+    out = {"rank": rank, "legs": {}}
+
+    # calibration: the unshaped rank-order ring; rank 0 picks the rate
+    rec, _ = _rp_train("calib", rank, peer, batches, RP_CALIB_STEPS)
+    sess = peer.current_session()
+    sent = sum(v for key, v in rec["wire_bytes"].items() if key.endswith("RING_SEGMENTED/off"))
+    walk_s = sorted(rec["walk_ms"][1:])[len(rec["walk_ms"][1:]) // 2] / 1e3
+    rate = int(sent / RP_CALIB_STEPS / (RP_SLOWDOWN * walk_s))
+    rate = int(sess.broadcast_bytes(str(rate).encode(), "kungfu::rp:rate").decode())
+    out["legs"]["calib"] = rec
+    out["rate"] = rate
+    out["edge_bytes_per_step"] = sent / RP_CALIB_STEPS
+
+    # (a) the shaped edge 1 -> 2 of the rank-order ring, ReplanPolicy
+    _rp_epoch(peer, KF_SHAPE_LINKS=f"{specs[1]}>{specs[2]}=bw:{rate}",
+              KF_CONFIG_REPLAN=RP_A_MODE, KF_CONFIG_ZERO="off")
+    policy = ReplanPolicy(interval_steps=RP_A_INTERVAL, patience=RP_A_PATIENCE,
+                          min_gain=RP_A_MIN_GAIN)
+    out["legs"]["a"], kept_a = _rp_train("a", rank, peer, batches, RP_A_STEPS,
+                                         policies=[policy], keep_step=RP_B_FLIP + 1)
+
+    # (b) ZeRO-1 on, the same shape: api.check_replan after step RP_B_FLIP
+    flip = {}
+
+    def flip_b(step, sess, opt):
+        if step == RP_B_FLIP:
+            flip["adopted"] = api.check_replan(want=True)
+            plan = flip["plan"] = sess.ring_plan()
+            pos = list(plan.order).index(sess.rank)
+            seg = gen_segmented_schedule(list(plan.order), pos).owned_segment
+            flip["weight"] = plan.weights[seg] if plan.weights else 1.0 / k
+            flip["state_bytes"] = opt.state_bytes()
+            flip["buckets"] = [(b.ob, b.oe, b.total) for b in opt._zs._buckets]
+
+    _rp_epoch(peer, KF_CONFIG_ZERO="on", KF_CONFIG_REPLAN=RP_B_MODE)
+    rec, _ = _rp_train("b", rank, peer, batches, RP_B_STEPS, after_step=flip_b)
+    rec.update(adopted=flip["adopted"], weight=flip["weight"],
+               state_bytes_after_flip=flip["state_bytes"], buckets=flip["buckets"])
+    out["legs"]["b"] = rec
+
+    # (b2) the replicated update across the same flip: leg (b)'s plan adopted
+    # after the same step
+    def flip_b2(step, sess, opt):
+        if step == RP_B_FLIP:
+            sess.adopt_replan(flip["plan"])
+
+    _rp_epoch(peer, KF_CONFIG_ZERO="off")
+    out["legs"]["b2"], kept_b2 = _rp_train("b2", rank, peer, batches, RP_B_STEPS,
+                                           after_step=flip_b2, keep_step=RP_B_FLIP + 1)
+    # the first step past the flip: the plan's all-reduce against the
+    # rank-order ring's, on the same local gradients, within the f32 limit
+    abs_sum = api.all_reduce_array(kept_a["local_abs"], name="rp:abs").double()
+    bound = (2 * (k - 1) * HOST_F32_ULP * abs_sum + HOST_F32_FLOOR) / k
+    diff = (kept_a["avg"].double() - kept_b2["avg"].double()).abs()
+    out["f32"] = {"same_local": bool(torch.equal(kept_a["local_abs"], kept_b2["local_abs"])),
+                  "within": bool((diff <= bound).all()), "max_diff": float(diff.max()),
+                  "max_ratio": float((diff / bound).max()),
+                  "bitwise": bool(torch.equal(kept_a["avg"], kept_b2["avg"]))}
+    del kept_a, kept_b2
+
+    # (c) two virtual hosts {0, 1} and {2, 3}: latency and a bandwidth cap on
+    # every cross-host edge, one shared uplink a host; a two-level plan, then
+    # rank RP_C_DEMOTED demoted for two steps and promoted back
+    hosts = (specs[:2], specs[2:])
+    entries = [f"{s}>{d}=lat:{RP_C_LAT_MS},bw:{RP_C_CROSS_BW}"
+               for a, b in (hosts, hosts[::-1]) for s in a for d in b]
+    entries += [f"uplink:{'|'.join(h)}=bw:{RP_C_UPLINK_BW}" for h in hosts]
+    shaping.BURST_SECONDS, shaping.BURST_MIN_BYTES = 0.002, 4 << 10  # bench_hier.py's
+    demoted = []
+
+    def wire_snapshot(sess):
+        return {"/".join(key): v for key, v in sess.wire_bytes.items()}
+
+    def rounds_c(step, sess, opt):
+        if step == RP_C_FLIP:
+            flip["c_wire_flat"] = wire_snapshot(sess)
+            flip["c_adopted"] = api.check_replan(want=True)
+            hier = sess.hier_plan()
+            flip["c_first"] = None if hier is None else {
+                "groups": [list(g) for g in hier.groups], "heads": list(hier.heads)}
+        elif step == RP_C_DEMOTE:
+            flip["c_wire_two_level"] = wire_snapshot(sess)
+            flip["c_demoted"] = sess.check_demote(demote=RP_C_DEMOTED) is not None
+        elif step == RP_C_PROMOTE:
+            flip["c_promoted"] = sess.check_demote(promote=RP_C_DEMOTED) is not None
+        demoted.append(list(sess.demoted_peers()))
+
+    _rp_epoch(peer, KF_SHAPE_LINKS=";".join(entries), KF_CONFIG_REPLAN="hier")
+    rec, _ = _rp_train("c", rank, peer, batches, RP_C_STEPS, after_step=rounds_c)
+    rec.update(adopted=flip["c_adopted"], demote_adopted=flip["c_demoted"],
+               promote_adopted=flip["c_promoted"], demoted=demoted, shape=";".join(entries),
+               first_hier=flip["c_first"], wire_flat=flip["c_wire_flat"],
+               wire_two_level=flip["c_wire_two_level"])
+    out["legs"]["c"] = rec
+    peer.current_session().barrier(":rp:end")
+    return out
+
+
+def replan_worker(rank: int, _spawned, specs) -> None:
+    try:
+        out = _replan_rank(rank, specs)  # sets the engine knobs before the engine's import
+        (RP_OUT / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        from kungfu_tpu_torch.peer import finalize_default_peer
+
+        finalize_default_peer()
+
+
+def _adoptions(digests) -> list:
+    """The steps after which the plan's digest changed (the digests are
+    read after each step)."""
+    naive = b"naive-ring".hex()
+    return [i + 1 for i, d in enumerate(digests) if d != (digests[i - 1] if i else naive)]
+
+
+def _rp_median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def replan_phase(smi: str) -> None:
+    """Measured topology on the card: 4 workers on card 0 train ResNet-50
+    (16 images of 224² a rank) by ZeroSGD(0.1, 0.9) over the host plane's
+    segmented f32 ring over sockets, telemetry's metrics on, a ledger
+    window of 3 after 1 settle step. After an unshaped calibration that
+    picks the rate of the shaped edge rank 1 -> 2: (a) ReplanPolicy every
+    4 steps routes around it; (b) ZeRO-1 across a flip by api.check_replan
+    after step 2, and (b2) the replicated update across the same flip; (c)
+    two virtual hosts, a two-level plan, rank 3 demoted for two steps and
+    promoted back. The parent replays each leg's first walk after the
+    first adoption through the plain twins."""
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+    from kungfu_tpu_torch.runner.cli import free_port_range
+
+    t_phase = time.perf_counter()
+    k = RP_RANKS
+    RP_OUT.mkdir(parents=True, exist_ok=True)
+    for f in [f for pat in ("*.json", "*.pt", "kf-uplink-*.bucket") for f in RP_OUT.glob(pat)]:
+        f.unlink()
+    base = free_port_range(k)  # telemetry on port + 10000: 22000-29999
+    specs = [f"127.0.0.1:{base + i}" for i in range(k)]
+    spawn_world(replan_worker, k, RP_DEADLINE_S, args=(specs,))
+    replan_gates(smi, specs, t_phase)
+
+
+def replan_gates(smi: str, specs, t_phase: float) -> None:
+    """The replan phase's gates and its line, from the workers' results in
+    RP_OUT."""
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+
+    k = len(specs)
+    ranks = [json.loads((RP_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+    legs = {leg: [r["legs"][leg] for r in ranks] for leg in ("calib", "a", "b", "b2", "c")}
+    for leg, recs in legs.items():
+        check(all(x["agreed"] for x in recs) and len({tuple(x["digests"]) for x in recs}) == 1,
+              f"replan {leg}: the ranks' parameters differ after some step")
+        check(len({tuple(x["plan_digests"]) for x in recs}) == 1,
+              f"replan {leg}: the ranks' plans differ after some step")
+    check(_adoptions(legs["calib"][0]["plan_digests"]) == [], "replan: the calibration re-planned")
+
+    # (a) one adoption routing around 1 -> 2, graded delivered, replayed
+    a = legs["a"]
+    adopt = _adoptions(a[0]["plan_digests"])
+    check(len(adopt) == 1, f"replan a: adoptions after steps {adopt}, want exactly one")
+    at = adopt[0]
+    order = a[0]["plan"]["order"]
+    check((1, 2) not in {(order[i], order[(i + 1) % k]) for i in range(k)},
+          f"replan a: the adopted order {order} keeps the shaped edge 1 -> 2")
+    unshaped = _rp_median([w for x in legs["calib"] for w in x["walk_ms"][1:]])
+    shaped = _rp_median([w for x in a for w in x["walk_ms"][1:at]])
+    after = _rp_median([w for x in a for w in x["walk_ms"][at + 1:]])
+    check(shaped >= RP_MIN_SLOWDOWN * unshaped,
+          f"replan a: the shaped walk {shaped:.1f} ms is under {RP_MIN_SLOWDOWN}x the "
+          f"unshaped {unshaped:.1f} ms")
+    for x in a:
+        check(len([e for e in x["audit"] if e["kind"] == "topology_replanned"]) == 1,
+              "replan a: a rank has no topology_replanned audit event, or more than one")
+        recs = [d for d in x["decisions"] if d["kind"] == "topology_replanned"]
+        check(len(recs) == 1 and recs[0]["status"] == "closed"
+              and recs[0]["verdict"] == "delivered",
+              f"replan a: the ledger's topology_replanned records {recs}")
+        check(x["replans_total"] == 1, f"replan a: kungfu_topology_replans_total "
+                                       f"{x['replans_total']}")
+    # a gauge child reads 0 until its link has a bandwidth sample
+    row1 = {dst: bw for dst, bw in a[1]["link_bw"].items() if bw > 0}
+    check(row1 and min(row1, key=row1.get) == specs[2],
+          f"replan a: rank 1's slowest link is not to rank 2: {a[1]['link_bw']}")
+    plan_a = a[0]["plan"]
+    walks = [torch.load(RP_OUT / f"a_walk{r}.pt") for r in range(k)]
+    check(all(x["capture_step"] == at + 1 for x in a), "replan a: the walk after the adoption "
+                                                       "was not captured")
+    replay = ring_replay([w["in"].clone() for w in walks], host_ops(plain=True),
+                         order=plan_a["order"], weights=plan_a["weights"])
+    check(all(torch.equal(replay[r], walks[r]["out"]) for r in range(k)),
+          "replan a: the first all-reduce after the adoption differs from its replay")
+    del walks, replay
+
+    # (b) ZeRO-1 across the flip, bitwise the replicated update across it
+    b, b2 = legs["b"], legs["b2"]
+    check(all(x["adopted"] for x in b) and all(_adoptions(x["plan_digests"]) == [RP_B_FLIP]
+                                               for x in b + b2),
+          "replan b: not one adoption after step 2")
+    check(b[0]["digests"][:RP_B_FLIP] == a[0]["digests"][:RP_B_FLIP],
+          "replan b: ZeRO's steps before the flip differ from leg (a)'s")
+    check(b[0]["digests"] == b2[0]["digests"],
+          "replan b: ZeRO across the flip differs from the replicated update across it")
+    plan_b = b2[0]["plan"]
+    check(plan_b["weights"] is not None and b[0]["plan"] == plan_b,
+          f"replan b: the plan {b[0]['plan']} is not weighted, or not the one b2 adopted")
+    walks = [torch.load(RP_OUT / f"b2_walk{r}.pt") for r in range(k)]
+    check(all(x["capture_step"] == RP_B_FLIP + 1 for x in b2),
+          "replan b2: the walk after the adoption was not captured")
+    replay = ring_replay([w["in"].clone() for w in walks], host_ops(plain=True),
+                         order=plan_b["order"], weights=plan_b["weights"])
+    check(all(torch.equal(replay[r], walks[r]["out"]) for r in range(k)),
+          "replan b2: the first weighted all-reduce after the flip differs from its replay")
+    del walks, replay
+    f32 = [r["f32"] for r in ranks]
+    check(all(x["same_local"] and x["within"] for x in f32),
+          f"replan b: the plan's all-reduce past the flip is not within the f32 limit of the "
+          f"rank-order ring's: {f32}")
+    check(all(x["mode"] == "sharded" for x in b), "replan b: ZeRO did not shard")
+    slack = 8 * len(b[0]["buckets"])  # the async phase's
+    for r, x in enumerate(b):
+        share = sum(2 * 4 * x["weight"] * total for _, _, total in x["buckets"])
+        check(x["state_bytes_after_flip"] <= share + slack,
+              f"replan b rank {r}: {x['state_bytes_after_flip']} B of ZeRO state after the "
+              f"re-shard, over its weighted share {share:.0f} + {slack}")
+
+    # (c) the two-level plan, its demotion and promotion
+    c = legs["c"]
+    check(all(x["adopted"] and x["demote_adopted"] and x["promote_adopted"] for x in c),
+          "replan c: a round did not adopt")
+    def hosts_of(hier):  # a group lists its head first
+        return hier is not None and sorted(sorted(g) for g in hier["groups"]) == [[0, 1], [2, 3]]
+
+    check(all(hosts_of(x["first_hier"]) and hosts_of(x["hier"]) for x in c)
+          and len({json.dumps(x["first_hier"]) for x in c}) == 1,
+          f"replan c: the plan's groups {[(x['first_hier'], x['hier']) for x in c]} are not "
+          "the virtual hosts")
+    want_demoted = [[RP_C_DEMOTED] if RP_C_DEMOTE <= s < RP_C_PROMOTE else []
+                    for s in range(1, RP_C_STEPS + 1)]
+    check(all(x["demoted"] == want_demoted for x in c),
+          f"replan c: demoted ranks by step {c[0]['demoted']}, want {want_demoted}")
+    for r, x in enumerate(c):
+        kinds = [d["kind"] for d in x["decisions"]]
+        check("peer_demoted" in kinds and "peer_promoted" in kinds,
+              f"replan c rank {r}: the ledger holds {kinds}")
+    walks = [torch.load(RP_OUT / f"c_walk{r}.pt") for r in range(k)]
+    check(all(x["capture_step"] == RP_C_FLIP + 1 for x in c),
+          "replan c: the first two-level walk was not captured")
+    first = c[0]["first_hier"]  # the plan the captured walk ran under
+    replay = hier_replay([w["in"].clone() for w in walks], host_ops(plain=True),
+                         first["groups"], first["heads"])
+    check(all(torch.equal(replay[r], walks[r]["out"]) for r in range(k)),
+          "replan c: the first two-level all-reduce differs from its replay")
+    dev = resolve_device()
+    ins = [w["in"].to(dev) for w in walks]
+    card = ins[0] + ins[1] + ins[2] + ins[3]
+    abs_sum = sum(x.abs().double() for x in ins)
+    bound = 2 * (k - 1) * HOST_F32_ULP * abs_sum + HOST_F32_FLOOR
+    err = (replay[0].to(dev).double() - card.double()).abs()
+    check(bool((err <= bound).all()),
+          f"replan c: the two-level sum is not within the f32 limit of the card's sum "
+          f"(max err/bound {float((err / bound).max())})")
+    c_err = float((err / bound).max())
+    del walks, replay, ins, card, abs_sum, bound, err
+
+    def two_level_wire(x, label):
+        """Bytes the rank sent under `label` in the two undemoted two-level
+        steps, a step."""
+        def total(snap):
+            return sum(v for key, v in snap.items() if f"/{label}/" in key)
+        return (total(x["wire_two_level"]) - total(x["wire_flat"])) / (RP_C_DEMOTE - RP_C_FLIP)
+
+    def decisions(recs, kind):
+        return [{key: d.get(key) for key in ("verdict", "predicted_gain", "realized_gain",
+                                             "baseline", "after")}
+                for d in recs if d["kind"] == kind]
+
+    emit("replan", nvidia_smi=smi, ranks=k, images_per_rank=OPT_BATCH, lr=RP_LR,
+         momentum=RP_MOMENTUM, rate_bytes_per_s=ranks[0]["rate"],
+         edge_bytes_per_step=ranks[0]["edge_bytes_per_step"],
+         walk_ms={"unshaped": unshaped, "shaped_rank_order": shaped, "after_adoption": after},
+         step_ms={leg: [x["step_ms"] for x in recs] for leg, recs in legs.items()},
+         median_step_ms_a={"before": max(_rp_median(x["step_ms"][1:at]) for x in a),
+                           "after": max(_rp_median(x["step_ms"][at + 1:]) for x in a)},
+         adopted_after_step={"a": at, "b": RP_B_FLIP, "c": RP_C_FLIP},
+         plan_a=plan_a, plan_b=plan_b,
+         matrix_a=a[0]["matrices"][0] if a[0]["matrices"] else None,
+         decisions_a=decisions(a[0]["decisions"], "topology_replanned"),
+         decisions_c={kind: decisions(c[0]["decisions"], kind)
+                      for kind in ("topology_replanned", "peer_demoted", "peer_promoted")},
+         rounds={leg: [x["rounds"] for x in recs] for leg, recs in legs.items() if leg != "calib"},
+         link_bw_rank1=row1, efficiency={leg: [x["efficiency"] for x in recs]
+                                         for leg, recs in legs.items()},
+         f32_past_flip=f32, zero_state_after_flip=[x["state_bytes_after_flip"] for x in b],
+         zero_weight=[x["weight"] for x in b],
+         hier_c=c[0]["hier"], matrix_c=c[0]["matrices"][0] if c[0]["matrices"] else None,
+         roles_c=[x["roles"] for x in c], c_err_over_bound=c_err,
+         wire_bytes_c_per_step={"heads": first["heads"],
+                                "inter_ring": [two_level_wire(x, "RING_SEGMENTED") for x in c],
+                                "intra": [two_level_wire(x, "HIER_INTRA") for x in c],
+                                "flat_ring": [sum(v for key, v in x["wire_flat"].items()
+                                                  if "/RING_SEGMENTED/" in key) / RP_C_FLIP
+                                              for x in c]},
+         wire_bytes_c_all=[x["wire_bytes"] for x in c], shape_c=c[0]["shape"],
+         seconds=time.perf_counter() - t_phase)
+
+
 ELASTIC_SCHEDULE = "2:3,4:3,2:3"  # workers: steps
 ELASTIC_SIZES = [2, 2, 2, 4, 4, 4, 2, 2, 2]
 ELASTIC_BATCH = 16  # images a rank a step, 224x224
@@ -3634,6 +4235,7 @@ def main() -> int:
     sma_launches = sma_phase(smi)
     async_phase(smi)
     telemetry_phase(smi)
+    replan_phase(smi)
     elastic_phase(smi)
     t_new = time.perf_counter()
     checkpoint_phase(smi)

@@ -20,8 +20,8 @@ spans, `telemetry_dump`, `metrics_text` and `resize_audit` read the
 process's telemetry, `get_peer_latencies`, `optimized_tree` and
 `egress_rates` the network monitors; `monitored_all_reduce_array`,
 `check_interference`, `active_strategy`, `active_candidate` and
-`calc_stats` drive and read the adaptive strategy. Not ported yet: the
-measured re-plan round `check_replan` (ROADMAP item 1e-ii).
+`calc_stats` drive and read the adaptive strategy, and `check_replan`
+runs one lockstep measured-topology re-plan round.
 """
 
 from __future__ import annotations
@@ -455,6 +455,16 @@ def check_interference() -> bool:
     (parity: check_interference, session/adaptiveStrategies.go:61-121).
     Call on every peer at the same step boundary."""
     return get_default_peer().current_session().check_interference()
+
+
+def check_replan(want: bool = True, min_gain: float = 1.05) -> bool:
+    """One lockstep measured-topology re-plan round: vote, exchange the
+    link rows, derive, digest-check and adopt. Call on EVERY peer at the
+    same step boundary (``policy.ReplanPolicy`` drives it on an
+    interval); a no-op unless ``KF_CONFIG_REPLAN`` is on. True if a plan
+    was adopted."""
+    sess = get_default_peer().current_session()
+    return sess.check_replan(want=want, min_gain=min_gain) is not None
 
 
 def active_strategy():

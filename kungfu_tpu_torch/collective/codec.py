@@ -103,6 +103,11 @@ class WireCodec:
             return self.wire_mode
         return self._candidates[self.adaptive.active][1]
 
+    def active_wire_mode(self) -> str:
+        """Public accessor of the RUNNING codec mode, which the
+        precision policy compares its target against."""
+        return self._active_wire_mode()
+
     def _codec_bypass(self, reason: str, w: Workspace) -> None:
         """Audit (once per (reason, dtype) per session epoch) that a
         workspace bypassed an enabled codec — exact semantics kept for

@@ -24,17 +24,26 @@ with metrics on (resolved once per session epoch) a latency-histogram
 observation; the walks count their wire bytes into
 `kungfu_collective_wire_bytes_total` and the codec's savings; the
 active ring position and successor, the two-level role and the wire
-mode are gauges (a flat, rank-order plan until the measured re-plan is
-ported); strategy and precision switches, codec bypasses and the first
-segmented fallback of an epoch are audit events.
+mode are gauges; strategy and precision switches, re-plans, codec
+bypasses and the first segmented fallback of an epoch are audit events,
+and every adaptation opens a decision-ledger record
+(`telemetry/decisions.py`) that measured step times later grade.
+
+Measured topology (`KF_CONFIG_REPLAN`): the lockstep rounds
+`check_replan` (vote, exchange every peer's link-table row, derive one
+plan from the shared matrix by `plan/replan.py`, adopt it behind a
+digest check) and `check_demote` (vote a rank into or out of the
+demoted role of a two-level plan). An adopted `RingPlan` reorders and
+re-weights the segmented ring; a `HierPlan` runs the two-level walk
+(`walks.py`). Listeners (the ZeRO-1 session) bracket each adoption.
+Rendezvous names are the reference's byte for byte, so mixed worlds
+derive and adopt one plan.
 
 The async scheduler (`scheduler()`, `collective/scheduler.py`) lives
-as long as the session epoch. Not ported yet: the measured-topology
-re-plan and demotion rounds, the decision ledger and the link table
-(ROADMAP item 1e-ii); the collective-order sentinel of
-KF_DEBUG_PROTOCOL. The knobs that govern them are still resolved and
-agreed between peers (`engine_knobs`), so a port peer and a reference
-peer agree on every rendezvous name.
+as long as the session epoch. Not ported yet: the collective-order
+sentinel of KF_DEBUG_PROTOCOL, and the resource plane's compute
+fraction that `measured_compute_frac` would share (ROADMAP item 1e-iv;
+the port shares 0.0, the reference's "unmeasured").
 """
 
 from __future__ import annotations
@@ -62,11 +71,14 @@ from kungfu_tpu_torch.collective.walks import (
     _frombuffer,
     algo_override,
 )
+from kungfu_tpu_torch.plan import replan as rp
 from kungfu_tpu_torch.plan import topology as topo
 from kungfu_tpu_torch.plan.graph import Graph
 from kungfu_tpu_torch.plan.peer import PeerID, PeerList
 from kungfu_tpu_torch.telemetry import audit, log
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import decisions
+from kungfu_tpu_torch.telemetry import link as tlink
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.transport.client import Client
 from kungfu_tpu_torch.transport.handlers import CollectiveEndpoint
@@ -155,6 +167,16 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         self.replan_mode = knobs.get("KF_CONFIG_REPLAN")
         self.demote_patience = int(knobs.get("KF_REPLAN_DEMOTE_PATIENCE"))
         self.zero_mode = knobs.get("KF_CONFIG_ZERO")
+        # the adopted measured-topology plan: starts naive (None) and
+        # changes only through the lockstep check_replan / check_demote /
+        # adopt_replan rounds; a HierPlan also sets its flat projection
+        self._ring_plan: Optional[rp.RingPlan] = None
+        self._hier_plan: Optional[rp.HierPlan] = None
+        self._demoted: Tuple[int, ...] = ()
+        self._replan_seq = 0
+        self._replan_listeners: List[object] = []
+        # this worker's row of the measured link matrix (metrics gate)
+        self._links = tlink.get_table() if tlink.enabled() else None
         # adaptive control (parity: session/adaptiveStrategies.go): a
         # deterministic candidate order — identical on every peer — so a
         # majority vote advances everyone in lockstep. Candidates are
@@ -228,8 +250,7 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         self._scheduler_lock = threading.Lock()
         self._epoch_closed = False
         # active-ring observability: this peer's position in the ring
-        # order and its successor; the re-plan counter and the two-level
-        # role keep a flat plan's values until the re-plan is ported
+        # order and its successor, the re-plan counter, the two-level role
         if metrics_on:
             self._ring_pos_g = tmetrics.gauge(
                 "kungfu_topology_ring_position",
@@ -427,6 +448,16 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
             new_wire=new_wire,
             switch_count=self.adaptive.switch_count,
         )
+        # the causal record, graded later against measured step times
+        decisions.open_decision(
+            "strategy_switch",
+            peer=str(self.self_id),
+            epoch=self.cluster_version,
+            trigger="interference_vote",
+            signals={"votes": int(votes_out[0]), "size": self.size},
+            old=f"{old_strategy.name}/{old_wire}",
+            new=f"{new_strategy.name}/{new_wire}",
+        )
         return True
 
     def check_precision(self, proposal: Optional[str] = None, trigger: str = "noise_scale",
@@ -436,10 +467,9 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         the current one); ballots are one-hot over WIRE_MODES, and a
         strict majority for a different mode flips the active candidate's
         wire member on EVERY peer. Returns the new mode, or None. The flip
-        is digest-checked, flushes the error-feedback residuals and is
-        audited (`precision_switch`, labelled by `trigger`); `signals` feed
-        the reference's decision ledger, which the port does not keep
-        yet."""
+        is digest-checked, flushes the error-feedback residuals, is
+        audited (`precision_switch`, labelled by `trigger`) and opens a
+        `precision_switch` decision record carrying `signals`."""
         if proposal is not None and proposal not in WIRE_MODES:
             raise ValueError(
                 f"check_precision: unknown wire mode {proposal!r}; "
@@ -475,6 +505,16 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
             old_wire=old_mode,
             new_wire=winner,
             flip_count=self._precision_flips,
+        )
+        decisions.open_decision(
+            "precision_switch",
+            peer=str(self.self_id),
+            epoch=self.cluster_version,
+            trigger=trigger,
+            signals=dict(signals or {}, votes=int(votes_out[WIRE_MODES.index(winner)]),
+                         size=self.size),
+            old=old_mode,
+            new=winner,
         )
         return winner
 
@@ -515,20 +555,323 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         """Per-strategy throughput summary (parity: CalcStats/LogStats)."""
         return self.adaptive.summary()
 
+    # ------------------------------------------------------------------
+    # measured-topology re-planning
+    # ------------------------------------------------------------------
+
+    def ring_plan(self) -> Optional[rp.RingPlan]:
+        """The adopted measured-topology plan, or None for the naive
+        rank-order ring with equal segments. Under a two-level plan this
+        is its FLAT projection (``HierPlan.as_ring_plan``), the layout
+        every flat consumer (ZeRO shard bounds, ring gauges, the
+        segmented RS/AG legs) reads."""
+        return self._ring_plan
+
+    def hier_plan(self) -> Optional[rp.HierPlan]:
+        """The adopted two-level plan, or None when the session runs a
+        flat ring."""
+        return self._hier_plan
+
+    def demoted_peers(self) -> Tuple[int, ...]:
+        """Ranks currently voted into the demoted (backup) role."""
+        return self._demoted
+
+    def _static_hosts(self) -> List[List[int]]:
+        """The static host partition as rank groups: the clustering
+        fallback when the measured matrix is not bimodal enough to
+        derive host boundaries."""
+        _, master_of = self.peers.partition_by_host()
+        groups: Dict[int, List[int]] = {}
+        for r in range(self.size):
+            groups.setdefault(master_of[r], []).append(r)
+        return [sorted(g) for _, g in sorted(groups.items())]
+
+    def add_replan_listener(self, listener) -> None:
+        """Register an object with ``pre_replan() -> token`` /
+        ``post_replan(token)`` hooks, invoked around every plan adoption
+        (the ZeRO-1 session registers itself: pre exports exact state
+        under the OLD shard layout, post re-shards under the new)."""
+        self._replan_listeners.append(listener)
+
+    def _replan_name(self, kind: str) -> str:
+        """Round-stamped rendezvous name of the lockstep re-plan rounds
+        (version + per-epoch sequence, the reference's bytes): every
+        member runs these rounds in lockstep, so the stamp agrees
+        cluster-wide and repeats never cross-consume lanes."""
+        return f"kungfu::replan:{kind}:v{self.cluster_version}:{self._replan_seq}"
+
+    def measured_matrix(self):
+        """Exchange every peer's outgoing link-table row and return the
+        merged k×k bandwidth matrix (bytes/sec as a float64 numpy array;
+        0 = no estimate), identical bytes on every peer by construction:
+        one gather to rank 0 and one broadcast of the concatenation
+        (``all_gather``), so the plan derivation downstream is a pure
+        function of shared input. Collective: call in lockstep."""
+        k = self.size
+        row = torch.zeros(k, dtype=torch.float32)
+        if self._links is not None:
+            for j, pid in enumerate(self.peers):
+                if j == self.rank:
+                    continue
+                bw = self._links.bandwidth(pid)
+                if bw is not None and bw > 0:
+                    row[j] = bw
+        out = torch.zeros(k * k, dtype=torch.float32)
+        self.all_gather(Workspace(send=row, recv=out, op=ReduceOp.SUM,
+                                  name=self._replan_name("mx")))
+        return out.reshape(k, k).to(torch.float64).numpy()
+
+    def measured_compute_frac(self) -> float:
+        """All-gather each peer's measured compute fraction and return
+        the cluster MAX, identical on every peer like
+        :meth:`measured_matrix`, so ``derive_plan``'s Amdahl clamp stays
+        a pure function of shared input. The port has no resource plane
+        yet (ROADMAP item 1e-iv): it contributes 0.0, the reference's own
+        "unmeasured" value, and still runs the all-gather in lockstep, so
+        a mixed world shares the reference peers' measurements and
+        derives one plan. Collective: call in lockstep."""
+        k = self.size
+        send = torch.zeros(1, dtype=torch.float32)
+        out = torch.zeros(k, dtype=torch.float32)
+        self.all_gather(Workspace(send=send, recv=out, op=ReduceOp.SUM,
+                                  name=self._replan_name("cf")))
+        return round(float(out.max()), 6)
+
+    def check_replan(self, want: bool = True, min_gain: float = 1.05,
+                     tag: str = "") -> Optional[rp.RingPlan]:
+        """One lockstep re-plan round; call on EVERY peer at the same
+        step boundary (``policy.ReplanPolicy`` gates on the step counter):
+
+        1. a majority vote over each peer's local ``want``;
+        2. on a majority, exchange the measured link rows
+           (:meth:`measured_matrix`) and compute fractions — every peer
+           now holds identical inputs;
+        3. derive the plan (``plan.replan.derive_plan``, or
+           ``derive_hier_plan`` under ``hier``) and adopt it via
+           :meth:`adopt_replan` when it clears ``min_gain``.
+
+        Returns the adopted (flat) plan, or None (no majority, no
+        measurable win, mode off). ``_replan_seq`` advances on every
+        branch, as the reference's does, so the next round's names agree
+        in mixed worlds. ``KF_CONFIG_REPLAN`` is consensus-checked at
+        session start, so either every peer runs these rounds or none
+        does."""
+        if self.replan_mode == "off" or self.size < 2 or self._tree_override:
+            return None
+        votes_in = torch.tensor([1 if want else 0], dtype=torch.int32)
+        votes_out = torch.zeros(1, dtype=torch.int32)
+        self._fixed_allreduce(Workspace(votes_in, votes_out, ReduceOp.SUM,
+                                        self._replan_name("vote") + tag))
+        if int(votes_out[0]) * 2 <= self.size:
+            self._replan_seq += 1
+            return None
+        matrix = self.measured_matrix()
+        compute_frac = self.measured_compute_frac()
+        if self.replan_mode == "hier":
+            # two-level mode: derive the hierarchy from the shared matrix;
+            # on a single host group fall back to the flat measured ring
+            # (every peer takes the same branch: the inputs are shared)
+            hier = rp.derive_hier_plan(
+                matrix, hosts=self._static_hosts(), mode=self.replan_mode,
+                current=self._hier_plan, compute_frac=compute_frac,
+                demoted=self._demoted)
+            if hier is not None:
+                if not self._hier_worthwhile(hier, min_gain):
+                    self._replan_seq += 1
+                    return None
+                self.adopt_replan(hier)
+                return self._ring_plan
+            if self._hier_plan is not None:
+                # the current hierarchy is still the best derivation
+                self._replan_seq += 1
+                return None
+            plan = rp.derive_plan(matrix, mode="auto", current=self._ring_plan,
+                                  compute_frac=compute_frac)
+        else:
+            plan = rp.derive_plan(matrix, mode=self.replan_mode, current=self._ring_plan,
+                                  compute_frac=compute_frac)
+        if plan is None or not self._replan_worthwhile(plan, min_gain):
+            self._replan_seq += 1
+            return None
+        self.adopt_replan(plan)
+        return plan
+
+    def _hier_worthwhile(self, plan: rp.HierPlan, min_gain: float) -> bool:
+        """Churn gate of two-level derivations: the FIRST hierarchy (or
+        any change to the demoted set) is structural and always adopted;
+        a re-derivation that merely reshuffles groups or heads must clear
+        ``min_gain``."""
+        cur = self._hier_plan
+        if cur is None or plan.demoted != cur.demoted:
+            return True
+        return plan.gain >= min_gain
+
+    def check_demote(self, demote: Optional[int] = None, promote: Optional[int] = None,
+                     tag: str = "") -> Optional[rp.RingPlan]:
+        """One lockstep demote/promote round, on EVERY peer at the same
+        step boundary like :meth:`check_replan`. Each peer proposes at
+        most one rank to demote into the backup role and one to promote
+        back; a one-hot per-candidate SUM on the knob-independent star
+        walk counts the proposals, candidates carried by a strict
+        majority flip, and the changed demoted set re-derives the
+        two-level plan from freshly exchanged matrix rows, adopted
+        through :meth:`adopt_replan` (which opens a `peer_demoted` /
+        `peer_promoted` record per flipped rank).
+
+        Returns the adopted flat projection, or None when no candidate
+        carried, the set did not change, or no hierarchy is derivable
+        (demotion acts only under ``KF_CONFIG_REPLAN=hier``)."""
+        if self.replan_mode != "hier" or self.size < 2 or self._tree_override:
+            return None
+        k = self.size
+        ballot = torch.zeros(2 * k, dtype=torch.int32)
+        if demote is not None and 0 <= int(demote) < k:
+            ballot[int(demote)] = 1
+        if promote is not None and 0 <= int(promote) < k:
+            ballot[k + int(promote)] = 1
+        counts = torch.zeros(2 * k, dtype=torch.int32)
+        self._fixed_allreduce(Workspace(ballot, counts, ReduceOp.SUM,
+                                        self._replan_name("demote") + tag))
+        demotes = {r for r in range(k) if int(counts[r]) * 2 > k}
+        promotes = {r for r in range(k) if int(counts[k + r]) * 2 > k}
+        new_demoted = tuple(sorted((set(self._demoted) | demotes) - promotes))
+        if new_demoted == self._demoted:
+            self._replan_seq += 1
+            return None
+        matrix = self.measured_matrix()
+        compute_frac = self.measured_compute_frac()
+        hier = rp.derive_hier_plan(
+            matrix, hosts=self._static_hosts(), mode=self.replan_mode,
+            current=self._hier_plan, compute_frac=compute_frac, demoted=new_demoted)
+        if hier is None:
+            # not derivable with the new set (single host group, or a
+            # host would lose its last head): the same branch everywhere
+            self._replan_seq += 1
+            return None
+        self.adopt_replan(hier)
+        return self._ring_plan
+
+    def _replan_worthwhile(self, plan: rp.RingPlan, min_gain: float) -> bool:
+        """Churn gate, a pure function of (current plan, derived plan): a
+        REORDER must clear ``min_gain``; an order-preserving weight
+        refinement must move some segment weight by ≥10% relative."""
+        cur = self._ring_plan
+        if cur is None or plan.order != cur.order:
+            return plan.gain >= min_gain
+        if plan.weights is None or cur.weights is None:
+            return True  # weights appearing/disappearing is material
+        return any(abs(n - o) > 0.1 * max(o, 1e-12)
+                   for n, o in zip(plan.weights, cur.weights))
+
+    def adopt_replan(self, plan) -> None:
+        """Install ``plan`` (a :class:`RingPlan`, a :class:`HierPlan`, or
+        None = back to the naive ring) as the active topology; call in
+        lockstep on every peer at a step boundary (no walk in flight).
+
+        The plan digest is asserted on the knob-INDEPENDENT star walk
+        first: a peer whose matrix-fed derivation diverged gets a named
+        RuntimeError here, never a rendezvous hang in a later walk whose
+        segment bounds silently differ. Registered listeners bracket the
+        swap (``pre_replan`` under the OLD plan, ``post_replan`` under
+        the new). A HierPlan installs both itself (driving the two-level
+        walk) and its flat projection, so every flat consumer re-shards
+        through the same bracket, flat→hier flips included. The codec's
+        error-feedback residuals are flushed: they index the old
+        ownership."""
+        seq = self._replan_seq
+        self._replan_seq += 1
+        digest = rp.plan_digest(plan)
+        if not self._bytes_agree(digest, f":replan:adopt:v{self.cluster_version}:{seq}",
+                                 self._fixed_allreduce):
+            raise RuntimeError(
+                "measured-topology re-plan diverged across peers: the ring plan must be "
+                "a pure function of the exchanged link matrix, but this peer derived "
+                f"{plan.describe() if plan is not None else 'naive'} (digest {digest.hex()}) "
+                "and at least one peer derived something else — refusing to install "
+                "mismatched segment bounds (walks would deadlock or corrupt); this is a "
+                "determinism bug, not a transient")
+        if isinstance(plan, rp.HierPlan):
+            hier: Optional[rp.HierPlan] = plan
+            flat: Optional[rp.RingPlan] = plan.as_ring_plan()
+        else:
+            hier, flat = None, plan
+        tokens = [(listener, listener.pre_replan()) for listener in self._replan_listeners]
+        old = self._ring_plan
+        old_demoted = self._demoted
+        self._ring_plan = flat
+        self._hier_plan = hier
+        self._demoted = hier.demoted if hier is not None else ()
+        for listener, token in tokens:
+            listener.post_replan(token)
+        self._flush_residuals("replan adopted: segment ownership moved")
+        self._publish_ring_metrics()
+        if self._replans_ctr is not None:
+            self._replans_ctr.inc()
+        naive = list(range(self.size))
+        old_order = list(old.order) if old is not None else naive
+        new_order = list(flat.order) if flat is not None else naive
+        gain = flat.gain if flat is not None else 1.0
+        audit.record_event(
+            "topology_replanned",
+            peer=str(self.self_id),
+            trigger="replan_vote",
+            old_order=old_order,
+            new_order=new_order,
+            weighted=bool(flat is not None and flat.weights is not None),
+            hier=hier is not None,
+            demoted=list(self._demoted),
+            predicted_gain=gain,
+        )
+        # the re-plan predicted a throughput ratio: this record measures
+        # the realized one; demote/promote flips get records of their own
+        decisions.open_decision(
+            "topology_replanned",
+            peer=str(self.self_id),
+            epoch=self.cluster_version,
+            trigger="replan_vote",
+            predicted_gain=gain,
+            old_order=",".join(str(r) for r in old_order),
+            new_order=",".join(str(r) for r in new_order),
+            weighted=bool(flat is not None and flat.weights is not None),
+            hier=hier is not None,
+        )
+        for r in sorted(set(self._demoted) - set(old_demoted)):
+            decisions.open_decision(
+                "peer_demoted", peer=str(self.self_id), epoch=self.cluster_version,
+                trigger="straggler_patience", predicted_gain=gain, demoted_rank=str(r))
+        for r in sorted(set(old_demoted) - set(self._demoted)):
+            decisions.open_decision(
+                "peer_promoted", peer=str(self.self_id), epoch=self.cluster_version,
+                trigger="straggler_recovered", predicted_gain=1.0, promoted_rank=str(r))
+
     def _publish_ring_metrics(self) -> None:
         """Refresh the active-ring gauges (position and successor edge)
-        of the rank-order ring, and the flat plan's role; children are
-        rebuilt so an old successor edge never stays in the exposition."""
+        and the two-level role from the current plan; children are
+        rebuilt so a re-plan never leaves the OLD successor edge frozen
+        in the exposition."""
         if self._ring_pos_g is None:
             return
-        pos = self.rank
-        succ = self.peers[(pos + 1) % self.size] if self.size > 1 else None
+        order = (self._ring_plan.order if self._ring_plan is not None
+                 else tuple(range(self.size)))
+        pos = order.index(self.rank)
+        succ = self.peers[order[(pos + 1) % self.size]] if self.size > 1 else None
         self._ring_pos_g.set(pos)
         self._ring_next_g.clear_children()
         if succ is not None:
             self._ring_next_g.labels(str(succ)).set(1)
         self._ring_role_g.clear_children()
-        self._ring_role_g.labels("flat", "member").set(0)
+        hier = self._hier_plan
+        if hier is None:
+            self._ring_role_g.labels("flat", "member").set(0)
+        else:
+            gi = hier.group_of(self.rank)
+            if self.rank in hier.demoted:
+                level, role = "intra", "demoted"
+            elif self.rank == hier.heads[gi]:
+                level, role = "inter", "head"
+            else:
+                level, role = "intra", "member"
+            self._ring_role_g.labels(level, role).set(gi)
         self._publish_wire_mode()
 
     def _publish_wire_mode(self) -> None:
@@ -541,8 +884,15 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
 
     def owned_bounds(self, count: int) -> Tuple[int, int]:
         """(begin, end) of the segment THIS rank owns fully reduced after
-        a reduce-scatter of ``count`` elements (the rank-order ring)."""
-        return topo.owned_segment_bounds(count, self.size, self.rank)
+        a reduce-scatter of ``count`` elements, under the CURRENT ring
+        plan: the one layout the walk engine, the ZeRO-1 shard views and
+        the api helpers read, so a plan change re-shards every consumer
+        through this function."""
+        plan = self._ring_plan
+        if plan is None:
+            return topo.owned_segment_bounds(count, self.size, self.rank)
+        return topo.owned_segment_bounds(count, self.size, self.rank,
+                                         order=plan.order, weights=plan.weights)
 
     def cross_all_reduce(self, w: Workspace) -> None:
         """AllReduce across host masters only (hierarchical path): while

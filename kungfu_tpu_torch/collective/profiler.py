@@ -2,10 +2,11 @@
 
 Port of `kungfu_tpu/collective/profiler.py`. With metrics on, every
 walk's attribution also lands in the registry
-(`kungfu_collective_walk_seconds_total{collective,strategy,phase}`);
-the efficiency-ratio gauge waits for a link bandwidth estimate, which
-the port's link table (ROADMAP item 1e-ii) does not supply yet.
-`snapshot()` and `signals()` read the same attribution.
+(`kungfu_collective_walk_seconds_total{collective,strategy,phase}`),
+and a walk the link table has an estimate for sets
+`kungfu_collective_efficiency_ratio{collective,strategy}`: the optimal
+walk's time over the slowest link it used, divided by its measured
+wall time. `snapshot()` and `signals()` read the same attribution.
 
 Everything here is walk *measurement*: per-walk wait/send accumulation
 (:class:`WalkProfile`), the deterministic per-step span sampler

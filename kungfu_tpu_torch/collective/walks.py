@@ -16,12 +16,18 @@ the critical-path profiler feeds. Buffers are one-dimensional contiguous
 torch CPU tensors; they cross into the transport only here, as their
 bytes (`_buf`), and come back from received bytes by `_frombuffer`.
 
+The global segmented ring follows the session's adopted `RingPlan`
+(its ring order and segment weights; subset rings stay naive), and an
+adopted `HierPlan` runs the two-level walk (`_run_hier`): an exact f32
+star reduce onto each host's head, the segmented ring over the heads
+only, a star broadcast back to every member, demoted ranks included.
+Each allreduce walk feeds the critical-path profiler scored against the
+slowest measured link it used (the link table), which publishes
+`kungfu_collective_efficiency_ratio`.
+
 With `KF_TELEMETRY=trace` the segmented walk records one span per ring
 step (`host.rs.step`, `host.ag.step`, thinned by
-`KF_TELEMETRY_SPAN_SAMPLE`). Left out of the port for now: the two-level
-walk over an adopted `HierPlan` and the ring order of an adopted
-`RingPlan`, which only the re-plan rounds set (ROADMAP item 1e-ii); the
-ring here is rank order.
+`KF_TELEMETRY_SPAN_SAMPLE`).
 """
 
 from __future__ import annotations
@@ -126,6 +132,17 @@ class WalkEngine:
     # rendezvous names a peer waits on).
     SEGMENT_MIN_BYTES = int(knobs.get("KF_CONFIG_SEGMENT_MIN_BYTES"))
 
+    # the adopted plans, set in lockstep by adopt_replan (None: the naive
+    # flat ring); class defaults so the mixin is safe before the facade's
+    # constructor runs, and no link table until it resolves one
+    _ring_plan = None
+    _hier_plan = None
+    _links = None
+    # the two-level walk's intra star legs run through _run_graphs by
+    # design, not as a fallback: they neither fire the segmented_fallback
+    # audit nor count as RING_SEGMENTED/BINARY_TREE bytes
+    _wire_label_override: Optional[str] = None
+
     def _segmented_active(self) -> bool:
         return (
             not self._tree_override
@@ -151,6 +168,9 @@ class WalkEngine:
         None and w.recv holds the result."""
         wire = self._wire_codec_for(w)
         if self._segmented_active() and w.recv.nbytes >= self.SEGMENT_MIN_BYTES:
+            if self._hier_plan is not None:
+                self._run_hier(w, cancel=cancel, wire=wire)
+                return None
             return self._run_segmented(w, cancel=cancel, wire=wire, defer_decode=defer_decode)
         self._run_strategies(w, self.global_strategies, cancel, wire=wire)
         return None
@@ -175,10 +195,15 @@ class WalkEngine:
             self._wire_saved_ctr.labels(self._wire_kind, codec).inc(raw_bytes - nbytes)
 
     def _record_walk(self, strategy_label: str, k: int, payload_bytes: int, wall: float,
-                     prof: WalkProfile) -> None:
-        """Feed one finished allreduce walk to the process profiler."""
+                     prof: WalkProfile, dsts=None) -> None:
+        """Feed one finished allreduce walk to the process profiler,
+        scored against the slowest measured link the walk used (every
+        estimated link when `dsts` is None: graph walks fan out)."""
+        link_bw = None
+        if self._links is not None:
+            _, link_bw = self._links.min_bandwidth(dsts)
         get_walk_profiler().record(self._wire_kind, strategy_label, k, payload_bytes,
-                                   wall, prof.wait, prof.send)
+                                   wall, prof.wait, prof.send, link_bw)
 
     def _walk_label(self) -> str:
         """Strategy label for graph-walk wire accounting: the graphs that
@@ -188,6 +213,8 @@ class WalkEngine:
         first such fallback of a session epoch is audited
         (`segmented_fallback`), except inside the knob-consensus walk,
         which takes the star by design."""
+        if self._wire_label_override is not None:
+            return self._wire_label_override
         if self._tree_override:
             return "SET_TREE"
         active = self._candidates[self.adaptive.active][0]
@@ -276,13 +303,23 @@ class WalkEngine:
         if w.is_empty:
             w.forward()
             return None
-        members = list(range(self.size)) if ranks is None else list(ranks)
+        # the GLOBAL ring follows the adopted plan's order and segment
+        # weights; subset rings (the hierarchical cross-host mode, the
+        # two-level walk's heads) stay naive: the plan indexes the full
+        # rank space. Read once per walk: adoption happens in lockstep at
+        # step boundaries, so no walk straddles a flip.
+        plan = self._ring_plan if ranks is None else None
+        if plan is not None:
+            members, weights = list(plan.order), plan.weights
+        else:
+            members = list(range(self.size)) if ranks is None else list(ranks)
+            weights = None
         k = len(members)
         if self.rank not in members or k == 1:
             w.forward()
             return None
         sched = topo.gen_segmented_schedule(members, members.index(self.rank))
-        bounds = topo.segment_bounds(w.recv.numel(), k)
+        bounds = topo.segment_bounds(w.recv.numel(), k, weights)
         w.forward()  # seed the accumulator with own contribution
         acc = w.recv
         send_peer = self.peers[sched.send_peer]
@@ -561,7 +598,8 @@ class WalkEngine:
             trace.record(f"host.rs[{w.recv.nbytes >> 20}MiB]", wall)
             # half walks move (k-1)/k·N = the optimal 2(k-1)/k volume of
             # HALF the payload: score against the halved payload
-            self._record_walk(Strategy.RING_SEGMENTED.name, k, w.recv.nbytes // 2, wall, prof)
+            self._record_walk(Strategy.RING_SEGMENTED.name, k, w.recv.nbytes // 2, wall, prof,
+                              dsts=[send_peer])
             return None
         if wire is not None:
             # seed the all-gather: quantize the owned (fully reduced)
@@ -605,8 +643,76 @@ class WalkEngine:
         wall = time.perf_counter() - t0
         trace.record(f"host.segmented[{w.recv.nbytes >> 20}MiB]", wall)
         self._record_walk(Strategy.RING_SEGMENTED.name, k,
-                          w.recv.nbytes if phase == "all" else w.recv.nbytes // 2, wall, prof)
+                          w.recv.nbytes if phase == "all" else w.recv.nbytes // 2, wall, prof,
+                          dsts=[send_peer])
         return deferred
+
+    # ------------------------------------------------------------------
+    # two-level (hierarchical) walk
+    # ------------------------------------------------------------------
+
+    def _run_hier(self, w: Workspace, cancel: Optional[threading.Event] = None,
+                  wire=None) -> None:
+        """Two-level allreduce over the adopted :class:`HierPlan`: (1) an
+        intra-host star reduce of every contributing member onto its
+        host's head, always exact f32; (2) the segmented ring allreduce
+        over the heads only (`_run_segmented`'s subset variant), the leg
+        the wire codec may encode; (3) an intra-host star broadcast of
+        the result back to every member, demoted ranks included.
+
+        Demoted ranks (:attr:`HierPlan.demoted`) contribute NOTHING: they
+        skip phases 1-2 and receive the result in phase 3. On exact
+        payloads every peer ends bit-identical; with the codec, phase 2's
+        once-per-owner quantization keeps heads bit-identical and phase 3
+        relays those exact f32 bytes.
+
+        Names, as the reference's: the intra legs rendezvous on
+        ``w.name`` (directions tell reduce from broadcast), the inter
+        ring on ``w.name:x:{rs,ag}{step}``, disjoint from any flat walk's,
+        so a peer that missed the lockstep adoption fails on a named
+        rendezvous, never reduces into the wrong buffer."""
+        plan = self._hier_plan
+        if plan is None or plan.size != self.size:
+            # a stale plan (a resize raced the flip): the flat walk is
+            # always correct
+            self._run_segmented(w, cancel=cancel, wire=wire)
+            return
+        if w.is_empty:
+            w.forward()
+            return
+        dem = set(plan.demoted)
+        n = self.size
+        # phase 1: intra star reduce, members -> head (exact f32)
+        reduce_g = Graph(n)
+        for head, grp in zip(plan.heads, plan.groups):
+            members = [r for r in grp if r != head and r not in dem]
+            if members:
+                reduce_g.add_edge(head, head)
+                for r in members:
+                    reduce_g.add_edge(r, head)
+        prev_label = self._wire_label_override
+        self._wire_label_override = "HIER_INTRA"
+        try:
+            self._run_graphs(w, [reduce_g], cancel, None)
+        finally:
+            self._wire_label_override = prev_label
+        # phase 2: the segmented ring over the heads, INPLACE over the
+        # group-reduced recv (non-heads forward(), a no-op inplace)
+        wx = Workspace(send=w.recv, recv=w.recv, op=w.op, name=f"{w.name}:x")
+        self._run_segmented(wx, ranks=list(plan.heads), cancel=cancel, wire=wire)
+        # phase 3: intra star broadcast, head -> every member (demoted
+        # included), inplace so the head's forward() keeps its result
+        bcast_g = Graph(n)
+        for head, grp in zip(plan.heads, plan.groups):
+            for r in grp:
+                if r != head:
+                    bcast_g.add_edge(head, r)
+        wb = Workspace(send=w.recv, recv=w.recv, op=w.op, name=w.name)
+        self._wire_label_override = "HIER_INTRA"
+        try:
+            self._run_graphs(wb, [bcast_g], cancel, None)
+        finally:
+            self._wire_label_override = prev_label
 
     # ------------------------------------------------------------------
     # chunked graph walks

@@ -40,8 +40,15 @@ stage threads; ``flush()`` returns once every shard updated and
 :meth:`ShardedUpdateSession.export_state` BEFORE the resize (an exact
 state all-gather; every peer leaves with the identical blob, byte for
 byte the reference's) and rebuild on the new epoch with
-``restore_state=blob``. The measured re-plan hooks (`pre_replan`,
-`post_replan`) come with the re-plan rounds (ROADMAP item 1e-ii).
+``restore_state=blob``.
+
+**Measured re-plan.** The session's owned bounds follow its adopted ring
+plan (order and segment weights). The update session registers itself
+as a replan listener: :meth:`ShardedUpdateSession.pre_replan` exports
+the exact state under the OLD layout, :meth:`ShardedUpdateSession.post_replan`
+re-slices every bucket's shard (masters, momentum, weight residual) to
+the NEW bounds and restores it bit for bit — flat and flat → two-level
+flips alike.
 With metrics on, the session keeps `kungfu_sharded_update_state_bytes`
 and `kungfu_sharded_update_seconds_total`; its memory-plane accountant
 is ROADMAP item 1e-iv.
@@ -166,6 +173,16 @@ class _Bucket:
         # error-feedback residual of the quantized weight all-gather
         self.wres = torch.zeros(self.oe - self.ob, dtype=torch.float32)
 
+    def reshard_bounds(self, opt: ShardedSGD, bounds: Tuple[int, int]) -> None:
+        """Re-slice this bucket's shard to new owned bounds (a measured
+        re-plan moved the segment layout). The caller restores master and
+        state contents from an exported full-state blob right after: the
+        freshly sized tensors here are pure allocation."""
+        self.ob, self.oe = bounds
+        self.master = torch.empty(self.oe - self.ob, dtype=torch.float32)
+        self.state = opt.init(self.oe - self.ob)
+        self.wres = torch.zeros(self.oe - self.ob, dtype=torch.float32)
+
     def state_bytes(self) -> int:
         n = self.master.nbytes
         for t in self.state.values():
@@ -214,6 +231,8 @@ class ShardedUpdateSession:
             self._add_bucket([self._member_names[i] for i in idxs], [views[i] for i in idxs])
         if hasattr(session, "add_ef_flush_listener"):
             session.add_ef_flush_listener(self._reset_weight_residuals)
+        if hasattr(session, "add_replan_listener"):
+            session.add_replan_listener(self)
         self._sync_round = 0
         self._export_seq = 0
         self._lock = threading.Lock()
@@ -470,6 +489,31 @@ class ShardedUpdateSession:
         residual, deterministically on every peer."""
         for b in self._buckets:
             b.wres.zero_()
+
+    # ------------------------------------------------------------------
+    # measured-topology re-plan hooks
+    # ------------------------------------------------------------------
+
+    def pre_replan(self) -> bytes:
+        """Replan-listener hook, called by ``HostSession.adopt_replan``
+        BEFORE the plan swap (in lockstep on every peer, at a step
+        boundary): quiesce in-flight weight all-gathers, then export the
+        full exact state under the OLD shard layout."""
+        if self.sess._scheduler is not None:
+            self.wait_params()
+        return self.export_state()
+
+    def post_replan(self, blob: bytes) -> None:
+        """Replan-listener hook, called AFTER the plan swap: re-slice
+        every bucket's shard to the session's NEW owned bounds and
+        restore masters and state from the pre-swap export — bit-exact
+        re-sharding, the contract of an elastic resize without changing
+        k."""
+        for b in self._buckets:
+            b.reshard_bounds(self.opt, self._owned_bounds(b.total))
+        self._restore(blob)
+        if self._state_gauge is not None:
+            self._state_gauge.set(self.state_bytes())
 
     def _restore(self, blob: bytes) -> None:
         per_bucket = 1 + len(self.opt.state_names())

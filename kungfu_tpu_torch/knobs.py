@@ -121,7 +121,11 @@ def _choice(name: str, choices, *, empty_as: Optional[str] = None):
 # The reference's names, defaults, parsers and doc strings, for the knobs
 # the port reads: the worker contract the runner sets, the elastic and
 # monitored runners' and the standby pool's, the log level, the stall
-# detector's switch, and the collective engine's and transport's.
+# detector's switch, the collective engine's and transport's, the
+# telemetry plane's, the decision ledger's, the link table's and the
+# shaped-link harness's. The reference's doc of KF_SHAPE_LINKS cites its
+# own issue tracker in two parentheticals; the port's leaves them out and
+# is otherwise the same.
 
 _SEC_CONTRACT = "Worker contract (set by the runner)"
 _knob("KF_SELF_SPEC", "", _str,
@@ -340,6 +344,31 @@ _knob("KF_DEBUG_PROTOCOL", "", _bool,
       "`kungfu_debug_protocol_*` metrics — before the rendezvous hang, "
       "not after. Off = protowatch never imported, hot path untouched.",
       section=_SEC_DEBUG, kind="bool")
+_knob("KF_SHAPE_LINKS", "", _str,
+      "Shaped-link harness: per-edge latency/bandwidth/"
+      "jitter shaping of transport sends, applied inside the timed "
+      "send window so the link table, walk profiler and step plane all "
+      "observe the shape. Format: `;`-separated entries "
+      "`[src>]dst=key:value[,key:value...]` with keys `lat:<ms>` "
+      "(per-message latency), `bw:<rate>` (token-bucket pacing; rate "
+      "accepts KiB/MiB/GiB[ps] suffixes, plain numbers are bytes/sec) "
+      "and `jitter:<ms>` (deterministic pseudo-random 0..jitter extra). "
+      "`dst` is a `host:port` peer spec or `*`; `src` (optional) "
+      "restricts the entry to the sender with that peer spec. "
+      "`uplink:<host>=bw:rate` entries model a SHARED host uplink: all "
+      "senders matching `<host>` (a bare hostname, or a `|`-joined "
+      "member list of peer specs for single-host harnesses) drain ONE "
+      "cross-process token bucket (file-locked mmap) for bytes leaving "
+      "the host — per-edge buckets cannot model uplink contention. "
+      "Local-only test/bench harness, never set in "
+      "production.",
+      section=_SEC_DEBUG, kind="str")
+_knob("KF_TEST_SLOW_EDGE", "", _str,
+      "DEPRECATED alias of `KF_SHAPE_LINKS`: `[src>]dst=ms` parses as "
+      "`[src>]dst=lat:ms` (with a deprecation warning) so stale envs "
+      "keep injecting. Use `KF_SHAPE_LINKS`. Local-only, never set in "
+      "production.",
+      section=_SEC_DEBUG, kind="str")
 
 _SEC_LOG = "Logging"
 _knob("KF_LOG_LEVEL", "", _stripped,
@@ -368,6 +397,61 @@ _knob("KF_TELEMETRY_SPAN_SAMPLE", "1.0", _float,
 _knob("KF_TRACE_BUFFER", "8192", _int,
       "Span ring-buffer capacity (events) for the /trace view.",
       section=_SEC_TELEMETRY, kind="int")
+_knob("KF_TELEMETRY_DIR", "", _str,
+      "Per-run telemetry directory (flight-recorder journals, "
+      "postmortems). kfrun mints one under /tmp/kungfu-telemetry and "
+      "injects it into every worker.",
+      section=_SEC_TELEMETRY, kind="path")
+
+_SEC_DECISION = "Decision ledger"
+_knob("KF_DECISION_KEEP", "64", _int,
+      "Decision-ledger ring size: how many adaptation decisions "
+      "(strategy/wire votes, re-plans, mode flips, resizes) each worker "
+      "keeps with their measured outcomes (served at /decisions, merged "
+      "into /cluster/decisions, journaled by the flight recorder). "
+      "0 disables the ledger entirely.",
+      section=_SEC_DECISION, kind="int")
+_knob("KF_DECISION_WINDOW", "8", _int,
+      "Paired measurement window: how many step durations form the "
+      "baseline captured at an adaptation and the post-settle window "
+      "that closes it with a realized gain (minimum 2).",
+      section=_SEC_DECISION, kind="int")
+_knob("KF_DECISION_SETTLE", "2", _int,
+      "Steps skipped after an adaptation before its outcome window "
+      "starts measuring (pools/caches/estimators re-warm under the new "
+      "configuration; counting those steps would bias every realized "
+      "gain low).",
+      section=_SEC_DECISION, kind="int")
+_knob("KF_DECISION_REGRESS_RATIO", "0.9", _float,
+      "Regression floor: a closed decision whose realized gain stays at "
+      "or under this ratio (baseline step time / post-flip step time) "
+      "for KF_DECISION_PATIENCE consecutive windows fires an "
+      "`adaptation_regressed` audit event — the rollback signal.",
+      section=_SEC_DECISION, kind="float")
+_knob("KF_DECISION_PATIENCE", "2", _int,
+      "Regression-watchdog patience: consecutive below-floor "
+      "measurement windows (the closing window counts as the first) "
+      "before `adaptation_regressed` fires.",
+      section=_SEC_DECISION, kind="int")
+
+_SEC_CLUSTER = "Cluster plane (runner-side aggregation)"
+_knob("KF_AGG_LINK_MAX_AGE_S", "60.0", _float,
+      "ReplanPolicy refuses to vote for a re-plan while the oldest "
+      "sampled link-matrix row is older than this (the lockstep check "
+      "still runs; this peer votes no). 0 disables the staleness gate.",
+      section=_SEC_CLUSTER, kind="float")
+
+_SEC_LINK = "Link observability"
+_knob("KF_LINK_BW_MIN_BYTES", str(64 << 10), _int,
+      "Sends smaller than this never feed the per-link bandwidth "
+      "estimator (control frames measure latency, not bandwidth).",
+      section=_SEC_LINK, kind="int")
+_knob("KF_LINK_EWMA_ALPHA", "0.2", _float,
+      "EWMA smoothing factor for per-link bandwidth/latency estimates.",
+      section=_SEC_LINK, kind="float")
+_knob("KF_LINK_MAX_PEERS", "256", _int,
+      "Max per-destination link estimators kept per worker.",
+      section=_SEC_LINK, kind="int")
 
 # --- accessors ---------------------------------------------------------
 

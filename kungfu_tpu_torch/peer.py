@@ -17,11 +17,14 @@ and every resize this peer takes part in appends an audit record
 carrying them.
 
 With any telemetry feature on (`KF_TELEMETRY`, or the metrics of
-`KF_CONFIG_ENABLE_MONITORING`) a worker serves `/metrics`, `/trace` and
-`/audit` on its peer port + 10000 (parity: peer/peer.go:96-104). Not
+`KF_CONFIG_ENABLE_MONITORING`) a worker serves `/metrics`, `/trace`,
+`/audit` and `/decisions` on its peer port + 10000 (parity:
+peer/peer.go:96-104). A session epoch whose async or ZeRO mode resolves
+differently from the last opens an `async_mode`/`zero_mode` decision
+record, a resize a `resize` record on every surviving peer, and each
+new peer list prunes the link table of departed destinations. Not
 ported yet: the flight recorder and the host-role election (ROADMAP
-item 1e-iii), and the decision records a resize writes in the
-reference (1e-ii).
+item 1e-iii).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.plan.peer import PeerList
 from kungfu_tpu_torch.runner import env as kfenv
 from kungfu_tpu_torch.store.versioned import BlobStore
-from kungfu_tpu_torch.telemetry import audit, log
+from kungfu_tpu_torch.telemetry import audit, decisions, log
+from kungfu_tpu_torch.telemetry import link as tlink
 from kungfu_tpu_torch.transport.client import Client
 from kungfu_tpu_torch.transport.handlers import CollectiveEndpoint, P2PEndpoint, QueueEndpoint
 from kungfu_tpu_torch.transport.message import ConnType
@@ -129,7 +133,7 @@ class Peer:
             self._update_to(self._peers)
 
     def _start_telemetry_server(self) -> None:
-        """Serve /metrics, /trace and /audit on self.port + 10000 when any
+        """Serve /metrics, /trace, /audit and /decisions on self.port + 10000 when any
         telemetry is on (parity: peer/peer.go:96-104). In-process peers
         (`single_process`) serve nothing; a port that cannot be bound
         (taken, or past 65535) warns instead of failing the worker."""
@@ -180,8 +184,9 @@ class Peer:
         returns False if self is not a member (detached). Parity:
         peer.updateTo (peer.go:148-170)."""
         with self._session_lock:
-            if self._session is not None:
-                self._session.close(timeout=10.0)
+            old_session = self._session
+            if old_session is not None:
+                old_session.close(timeout=10.0)
             if peers.rank(self.self_id) is None:
                 self.detached = True
                 return False
@@ -198,6 +203,24 @@ class Peer:
             )
             self._peers = peers
             self.epoch_count += 1
+            # an engine-mode flip at a session epoch is an adaptation like
+            # any vote: open its causal record
+            if old_session is not None:
+                for kind, was, now in (
+                        ("async_mode", old_session.async_enabled(),
+                         self._session.async_enabled()),
+                        ("zero_mode", old_session.zero_enabled(),
+                         self._session.zero_enabled())):
+                    if was != now:
+                        decisions.open_decision(
+                            kind, peer=str(self.self_id), epoch=self.cluster_version,
+                            trigger="session_epoch", old="on" if was else "off",
+                            new="on" if now else "off")
+            # a departed peer's frozen bandwidth estimate must not keep
+            # winning links/min_bw or walk-efficiency scoring (runners
+            # stay: stable control-plane membership)
+            if tlink.enabled():
+                tlink.get_table().prune(list(peers) + list(self.config.runners))
         if not self.config.single_process:
             # fail fast BEFORE the barrier: the barrier itself walks
             # strategy-dependent graphs, so knob-divergent peers would hang
@@ -273,6 +296,12 @@ class Peer:
             progress=progress or None,
             detached=not keep,
         )
+        if keep:
+            # the capacity decision: open its outcome record on every
+            # surviving peer (a detached peer has no steps to measure)
+            decisions.open_decision(
+                "resize", peer=str(self.self_id), epoch=self.cluster_version,
+                trigger=trigger, old_size=len(old_peers), new_size=len(cluster.workers))
         log.info("resize v%d: %d -> %d workers (%s)%s", self.cluster_version, len(old_peers),
                  len(cluster.workers), trigger, "" if keep else " [detached]")
         return True, keep

@@ -1,4 +1,4 @@
-"""Per-worker telemetry HTTP endpoint: /metrics, /trace and /audit.
+"""Per-worker telemetry HTTP endpoint: /metrics, /trace, /audit and /decisions.
 
 Port of `kungfu_tpu/telemetry/http.py` (parity: the reference peer's
 port+10000 monitoring server, srcs/go/monitor/server.go, extended to the
@@ -8,11 +8,15 @@ whole telemetry subsystem):
   (plus attached renderers, e.g. the net monitor's windowed rates);
 - ``/trace``    Chrome-trace JSON of the span ring;
 - ``/audit``    the resize/strategy audit log as JSON; ``?since=<seq>``
-  ships only records created or annotated past that cursor.
+  ships only records created or annotated past that cursor;
+- ``/decisions`` the decision ledger's document
+  (:mod:`~kungfu_tpu_torch.telemetry.decisions`), with the same
+  ``?since=`` cursor over its records.
 
-The JAX package's ``/steptrace``, ``/decisions``, ``/resources``,
-``/memory`` and ``/host/telemetry`` views read planes the port does not
-have yet, so they answer 404 here like any unknown path. A query string
+The JAX package's ``/steptrace``, ``/resources``, ``/memory`` and
+``/host/telemetry`` views read planes the port does not have yet
+(ROADMAP items 1e-iii and 1e-iv), so they answer 404 here like any
+unknown path. A query string
 never selects the route; a view that raises is a 500. Every 200 carries
 this process's perf clock and wall clock as headers, for offline trace
 merges.
@@ -51,6 +55,14 @@ def _since(query: Dict[str, str]) -> Optional[int]:
         return int(raw)
     except ValueError:
         return None
+
+
+def _decisions_doc(since: Optional[int] = None) -> dict:
+    # lazy: the ledger's knobs resolve at first use, not at server
+    # construction
+    from kungfu_tpu_torch.telemetry import decisions
+
+    return decisions.get_ledger().export(since=since)
 
 
 def _adapt_route(fn: Callable) -> Callable[[Dict[str, str]], "tuple[str, str]"]:
@@ -93,6 +105,8 @@ class TelemetryServer:
             "/trace": lambda: (tracing.chrome_trace_json(), "application/json"),
             "/audit": lambda q: (json.dumps(audit.to_json(since=_since(q))),
                                  "application/json"),
+            "/decisions": lambda q: (json.dumps(_decisions_doc(_since(q))),
+                                     "application/json"),
         }
         if extra_routes:
             routes.update(extra_routes)

@@ -12,11 +12,22 @@ frames, as the reference's transport does. `frames` counts the frames
 this client sent each way, so a reader knows which path a walk took.
 
 With metrics on (`KF_TELEMETRY=metrics` or `KF_CONFIG_ENABLE_MONITORING`)
-every send feeds the net monitor (egress bytes and messages per peer)
-and the `kungfu_transport_send_seconds` histogram, every ping the
-`kungfu_transport_rtt_seconds` one. The gate is read when the client is
-built and again at every epoch (`reset_connections`); with metrics off
-the send path is untouched.
+every send feeds the net monitor (egress bytes and messages per peer),
+the link table (`telemetry/link.py`: this worker's row of the measured
+bandwidth matrix; a send that had to dial counts its bytes but is no
+bandwidth sample) and the `kungfu_transport_send_seconds` histogram,
+every ping the `kungfu_transport_rtt_seconds` one and the link table's
+latency. The gate is read when the client is built and again at every
+epoch (`reset_connections`); with metrics off the send path is
+untouched.
+
+`KF_SHAPE_LINKS` (`transport/shaping.py`) shapes this client's sends,
+matched against its OWN peer id: the delay is slept inside the timed
+send window with the connection's lock held, as a saturated pipe would
+hold it, so the link table and the walk profiler see the shaped edge;
+a ping's round trip includes the shaped latency. Unlike the
+reference's client, which reads the shape once, the port's re-reads it
+at every epoch with the telemetry gate.
 """
 
 from __future__ import annotations
@@ -75,15 +86,23 @@ class Client:
         # frames sent through the shm ring and as whole socket frames
         self.frames = {"shm": 0, "socket": 0}
         self._frames_lock = threading.Lock()
+        self._shaper = None
         self._resolve_telemetry()
 
     def _resolve_telemetry(self) -> None:
         """Egress accounting (parity: monitor.Egress called from the
-        connection send path, srcs/go/monitor/monitor.go:28-72) and the
-        latency histograms, under the metrics gate."""
+        connection send path, srcs/go/monitor/monitor.go:28-72), the link
+        table and the latency histograms, under the metrics gate; and the
+        link shaper of `KF_SHAPE_LINKS` (None when unshaped)."""
         from kungfu_tpu_torch.monitor import net as _net
+        from kungfu_tpu_torch.telemetry import link as _link
+        from kungfu_tpu_torch.transport import shaping as _shaping
 
         self._monitor = _net.get_monitor() if _net.enabled() else None
+        self._links = _link.get_table() if _link.enabled() else None
+        old, self._shaper = self._shaper, _shaping.from_env(str(self.self_id))
+        if old is not None:
+            old.close()
         self._send_hist = self._rtt_hist = None
         if self._monitor is not None:
             from kungfu_tpu_torch.telemetry import metrics as _tmetrics
@@ -212,16 +231,26 @@ class Client:
             self._count("socket")
             return Message(name=name, data=data, flags=flags)
 
+        dialed = False
         with lock:
             with self._pool_lock:
                 sock = self._pool.get(key)
             if sock is None:
                 sock = self._connect(peer, conn_type)
+                dialed = True
                 with self._pool_lock:
                     self._pool[key] = sock
                 if shm_conn:
                     self._fresh_arena(key)
             t0 = time.perf_counter()
+            shaper = self._shaper
+            if shaper is not None:
+                delay = shaper.delay(peer, data_len)
+                if delay > 0:
+                    # inside the timed window, the connection's lock held:
+                    # the shaped edge serializes like a saturated pipe, and
+                    # the link table and the walk profiler see it
+                    time.sleep(delay)
             try:
                 send_message(sock, wire_message())
             except OSError:
@@ -234,6 +263,7 @@ class Client:
                 except OSError:
                     pass
                 sock = self._connect(peer, conn_type)
+                dialed = True
                 with self._pool_lock:
                     self._pool[key] = sock
                 if shm_conn:
@@ -245,16 +275,30 @@ class Client:
                 self._send_hist.observe(dt)
         if self._monitor is not None:
             self._monitor.sent(peer, data_len)
+        if self._links is not None:
+            # a send that had to dial still counts its bytes, but is no
+            # bandwidth sample: connection setup is not link speed
+            self._links.observe_send(peer, data_len, 0.0 if dialed else dt)
 
     def ping(self, peer: PeerID, timeout: float = 2.0) -> bool:
         try:
             t0 = time.perf_counter()
             sock = socket.create_connection((peer.host, peer.port), timeout=timeout)
+            shaper = self._shaper
+            if shaper is not None:
+                # the shaped message latency inside the timed round trip,
+                # so the link table's latency sees the shape too
+                delay = shaper.latency(peer)
+                if delay > 0:
+                    time.sleep(delay)
             send_header(sock, ConnType.PING, self.self_id.host, self.self_id.port, 0)
             recv_ack(sock)
             sock.close()
+            rtt = time.perf_counter() - t0
             if self._rtt_hist is not None:
-                self._rtt_hist.labels(str(peer)).observe(time.perf_counter() - t0)
+                self._rtt_hist.labels(str(peer)).observe(rtt)
+            if self._links is not None:
+                self._links.observe_latency(peer, rtt)
             return True
         except OSError:
             return False
@@ -273,3 +317,6 @@ class Client:
 
     def close(self) -> None:
         self.reset_connections()
+        if self._shaper is not None:
+            self._shaper.close()
+            self._shaper = None

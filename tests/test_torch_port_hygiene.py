@@ -45,7 +45,10 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       # the telemetry core and the network monitors
                       "telemetry", "telemetry.config", "telemetry.metrics",
                       "telemetry.tracing", "telemetry.audit", "telemetry.promparse",
-                      "telemetry.http", "monitor.net", "monitor.latency")
+                      "telemetry.http", "monitor.net", "monitor.latency",
+                      # measured topology
+                      "transport.shaping", "telemetry.link", "telemetry.decisions",
+                      "policy")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys

@@ -325,11 +325,9 @@ def test_world_results_latencies_and_tree(telemetry_worlds, world):
     assert len(tree) == 4 and sum(1 for i, f in enumerate(tree) if i == f) == 1
 
 
-# families of the planes the port does not have yet: the link table and
-# the walk efficiency it scores (ROADMAP 1e-ii), the resource and memory
-# planes (1e-iv)
-LATER_PLANES = ("kungfu_link_", "kungfu_collective_efficiency_ratio", "kungfu_memory_",
-                "kungfu_resource_")
+# families of the planes the port does not have yet: the resource and
+# memory planes (ROADMAP 1e-iv)
+LATER_PLANES = ("kungfu_memory_", "kungfu_resource_")
 
 
 @pytest.mark.parametrize("world", ["ref", "mixed"])
@@ -338,8 +336,7 @@ def test_every_rank_serves_the_same_families_spans_and_audit(telemetry_worlds, w
     ref = telemetry_worlds["ref"][0]
     for x in ranks.values():
         # a port rank registers every family a reference rank does, minus
-        # the planes the port does not have yet (link table, memory,
-        # decisions, flight)
+        # the planes the port does not have yet (memory, resources)
         missing = set(ref["names"]) - set(x["names"])
         assert all(n.startswith(LATER_PLANES) for n in missing), " ".join(sorted(missing))
         assert not set(x["names"]) - set(ref["names"])

@@ -36,25 +36,30 @@ import torch
 from kungfu_tpu.monitor import net as rnet
 from kungfu_tpu.telemetry import audit as raudit
 from kungfu_tpu.telemetry import config as rconfig
+from kungfu_tpu.telemetry import decisions as rdecisions
+from kungfu_tpu.telemetry import link as rlink
 from kungfu_tpu.telemetry import metrics as rmetrics
 from kungfu_tpu.telemetry import promparse as rpromparse
 from kungfu_tpu.telemetry import tracing as rtracing
 from kungfu_tpu_torch import telemetry
 from kungfu_tpu_torch.monitor import net
-from kungfu_tpu_torch.telemetry import audit, config, metrics, promparse, tracing
+from kungfu_tpu_torch.telemetry import audit, config, decisions, link, metrics, promparse, tracing
 from kungfu_tpu_torch.telemetry.http import CLOCK_HEADER, WALL_HEADER, TelemetryServer
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _reset_all():
-    for cfg, reg, trc, aud, mon in ((config, metrics, tracing, audit, net),
-                                    (rconfig, rmetrics, rtracing, raudit, rnet)):
+    for cfg, reg, trc, aud, mon, lnk, dec in (
+            (config, metrics, tracing, audit, net, link, decisions),
+            (rconfig, rmetrics, rtracing, raudit, rnet, rlink, rdecisions)):
         cfg.refresh(None)
         reg.get_registry().clear()
         trc.clear()
         aud.clear()
         mon._global_monitor = None
+        lnk._table = None  # its families live in the registry just cleared
+        dec.reset_ledger()
 
 
 @pytest.fixture(autouse=True)
@@ -514,7 +519,8 @@ def server():
 @pytest.mark.parametrize("path,status", [
     ("/metrics", 200), ("/", 200), ("/metrics/", 200), ("/metrics?t=123", 200),
     ("/trace", 200), ("/trace?x=/audit", 200), ("/audit", 200), ("/audit?since=999999999", 200),
-    ("/audit?since=bad", 200), ("/steptrace", 404), ("/decisions", 404),
+    ("/audit?since=bad", 200), ("/steptrace", 404), ("/decisions", 200),
+    ("/decisions?since=999999999", 200),
     ("/resources", 404), ("/memory", 404), ("/host/telemetry", 404), ("/nope", 404),
     ("/boom", 500)])
 def test_server_routes(server, path, status):
@@ -529,6 +535,10 @@ def test_server_routes(server, path, status):
         assert headers["Content-Type"].startswith("text/plain")
     elif route == "/trace":
         assert "srv.span" in [e["name"] for e in json.loads(body)["traceEvents"]]
+    elif route == "/decisions":
+        doc = json.loads(body)
+        assert {"peer", "perf_now_us", "next_since", "decisions"} <= set(doc)
+        assert doc["decisions"] == [] or not path.endswith("since=999999999")
     else:
         recs = json.loads(body)
         assert [r["kind"] for r in recs] == ([] if path.endswith("since=999999999") else ["first"])

@@ -5,6 +5,7 @@ same environment the same way, and the utilities behave as
 reference's. In process."""
 
 import io
+import re
 import threading
 import time
 
@@ -20,6 +21,15 @@ from kungfu_tpu_torch.utils.pool import BufferPool, CachedThreadPool, get_buffer
 from kungfu_tpu_torch.utils.state import Counter, ExponentialMovingAverage
 from kungfu_tpu_torch.utils.stall import stall_detect
 
+
+
+def _untagged(doc: str) -> str:
+    """A reference knob doc without its issue-tracker parentheticals (an
+    upper-case word and a number in brackets), which the port's docs
+    leave out."""
+    return re.sub(r" \([A-Z]+ \d+\)", "", doc)
+
+
 # strings each knob is read from: empty, blank, plausible, malformed
 SAMPLES = ["", "  ", "1", "0", "yes", "OFF", "127.0.0.1:38000", " a:1,b:2 ", "0,1,,3",
            "DEBUG", "warn", "7", "x1", "3.5"]
@@ -32,8 +42,9 @@ SAMPLES = ["", "  ", "1", "0", "yes", "OFF", "127.0.0.1:38000", " a:1,b:2 ", "0,
 @pytest.mark.parametrize("name", knobs.names())
 def test_each_knob_reads_the_environment_as_the_reference(name, monkeypatch):
     mine, theirs = knobs.declared()[name], rknobs.declared()[name]
-    for field in ("default", "doc", "section", "kind", "default_doc", "strict", "consensus"):
+    for field in ("default", "section", "kind", "default_doc", "strict", "consensus"):
         assert getattr(mine, field) == getattr(theirs, field), field
+    assert mine.doc == _untagged(theirs.doc)
     monkeypatch.delenv(name, raising=False)
     assert knobs.get(name) == rknobs.get(name) and knobs.raw(name) == rknobs.raw(name)
     assert knobs.is_set(name) is rknobs.is_set(name) is False
@@ -97,10 +108,15 @@ def test_registry_and_doc():
         "KF_STANDBY_PRELOAD", "KF_ACTIVATED_TS",
         # the telemetry plane's
         "KF_TELEMETRY", "KF_TELEMETRY_MAX_SERIES", "KF_TELEMETRY_SPAN_SAMPLE",
-        "KF_TRACE_BUFFER", "KF_CONFIG_ENABLE_MONITORING"}
-    assert len(knobs.names()) == 44
+        "KF_TRACE_BUFFER", "KF_CONFIG_ENABLE_MONITORING",
+        # measured topology: the shaped links, the link table, the ledger
+        "KF_TELEMETRY_DIR", "KF_DECISION_KEEP", "KF_DECISION_WINDOW", "KF_DECISION_SETTLE",
+        "KF_DECISION_REGRESS_RATIO", "KF_DECISION_PATIENCE", "KF_AGG_LINK_MAX_AGE_S",
+        "KF_LINK_BW_MIN_BYTES", "KF_LINK_EWMA_ALPHA", "KF_LINK_MAX_PEERS", "KF_SHAPE_LINKS",
+        "KF_TEST_SLOW_EDGE"}
+    assert len(knobs.names()) == 56
     doc = knobs.render_doc()
-    theirs = set(rknobs.render_doc().splitlines())
+    theirs = set(_untagged(rknobs.render_doc()).splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
     assert len(rows) == len(knobs.names())
     assert all(row in theirs for row in rows)  # each row as the reference renders it
