@@ -151,6 +151,33 @@ Phases, each printing one JSON line:
            hier_replay). Prints the matrices, predicted against realized
            gains, step and walk ms before and after, the rounds' ms (vote,
            matrix, digest and listeners), heads' and members' wire bytes;
+  forensics  run-level forensics: 4 workers of this script
+           (`--forensics-worker`) on card 0 under the port's kfrun `-w
+           -auto-recover 30s -builtin-config-port 0 -debug-port`, ResNet-50
+           at 16 images a rank, S-SGD over the segmented f32 ring on
+           sockets, metrics, trace and audit on, a flight snapshot every
+           0.5 s, the aggregator sweeping every 1 s (results, kfrun's log
+           and the run dir in `build/chip_smoke_fx/`). (a) 3 unshaped
+           steps on the step-end path pick the rate at which the edge
+           rank 1 -> 2 takes 4x the unshaped walk; a cluster epoch shapes
+           it and turns the async hook path on (2 buckets), 12 steps in a
+           PolicyRunner. Gates: every rank's /steptrace one timeline a
+           round, a lane a bucket naming its ring successor; the last 6
+           merged steps of /cluster/steps elect rank 1 and its edge to
+           rank 2, overlap and queue-delay fractions in [0, 1];
+           /cluster/health during training lists the 4 peers stepping
+           (p50 <= p99) and names the edge; every rank's PolicyRunner
+           reads it from advancing refreshes; /cluster/metrics holds each
+           rank's ring bytes under peer=, exactly the formula; parameters
+           bitwise equal after every step. (b) rank 0 takes a SIGUSR2
+           (a dump record), rank 3 SIGKILLs itself, kfrun is stopped by
+           SIGTERM; gates: one postmortem naming SIGKILL, its last step,
+           rank 3's last line, the step ring and the ledger's tail, on
+           /cluster/postmortem, in postmortems.jsonl and as the runner's
+           one worker_postmortem; the survivors' journals whole, ending in
+           their SIGTERM flush. Prints step ms, each view's scrape ms and
+           bytes, the aggregator's sweep s, journal bytes and snapshots,
+           and the kill -> postmortem ms split into detection and harvest;
   elastic  BASELINE config 5's resize path: the port's kfrun
            (`python -m kungfu_tpu_torch.runner.cli -w`, a built-in config
            server, one warm standby) starts 2 workers of this script
@@ -212,6 +239,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3212,6 +3240,452 @@ def replan_gates(smi: str, specs, t_phase: float) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+FX_RANKS = 4
+FX_CALIB_STEPS = 3  # unshaped steps on the step-end path; the shaped edge's rate comes from them
+FX_STEPS = 12  # leg (a): shaped steps on the async hook path
+FX_LAST = 6  # leg (a)'s gate: the last merged steps that must elect the shaped edge
+FX_LR = 0.1
+FX_DEADLINE_S = 600  # kfrun -timeout
+FX_SIGNAL_WAIT_S = 40  # a worker's wait for its PolicyRunner to read the cluster's election
+FX_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_fx"
+FX_SCRAPE_INTERVAL = 1.0
+FX_KNOBS = dict(KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES="0",
+                KF_CONFIG_WIRE="off", KF_CONFIG_SHM="0", KF_CONFIG_ASYNC="off",
+                KF_TELEMETRY="metrics,trace,audit", KF_FLIGHT_INTERVAL="0.5",
+                KF_CLUSTER_SCRAPE_INTERVAL=str(FX_SCRAPE_INTERVAL))
+FX_WIRE = ("RING_SEGMENTED", "off")  # (strategy, codec): the ring's f32 bytes
+# the training's collectives: the step-end path's group and the scheduler's
+# buckets (a barrier's or a consensus's walk counts under another label)
+FX_TRAIN_COLLECTIVES = ("group_all_reduce", "raw")
+FX_LAST_WORDS = "forensics rank 3: last words before SIGKILL"
+
+
+def forensics_worker(out_dir: str) -> int:
+    """One worker of the forensics phase under the port's kfrun -w
+    -auto-recover -debug-port: ResNet-50 at 16 images of 224² a rank,
+    S-SGD over the host plane's segmented f32 ring on sockets. An unshaped
+    calibration on the step-end path (KF_CONFIG_ASYNC off) picks the rate
+    of the edge rank 1 -> 2; then a cluster epoch with that edge shaped
+    and the async hook path on (its flip opens an `async_mode` record in
+    the ledger), FX_STEPS steps under a PolicyRunner. Then leg (b): rank 0
+    names its pid for the phase's SIGUSR2, rank 3 waits for the phase's
+    go and SIGKILLs itself, ranks 0-2 idle until the recovery stops them.
+    A survivor the recovery respawns only idles."""
+    import signal
+
+    from kungfu_tpu_torch import knobs
+
+    out = Path(out_dir)
+    if knobs.raw("KF_INIT_CLUSTER_VERSION") not in ("", "0"):
+        time.sleep(FX_DEADLINE_S)  # respawned by the recovery: the phase stops kfrun
+        return 0
+    import torch
+
+    from kungfu_tpu_torch import resolve_device
+    from kungfu_tpu_torch import torch as kf
+    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.peer import get_default_peer
+    from kungfu_tpu_torch.policy import PolicyRunner
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    peer = get_default_peer()
+    sess = peer.current_session()
+    rank = sess.rank
+    specs = [str(p) for p in peer.config.peers]
+    device = resolve_device()
+    gen = torch.Generator(device=device).manual_seed(1100 + rank)
+    batches = [(torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
+                            generator=gen),
+                torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
+               for _ in range(FX_STEPS)]
+    rec = {"rank": rank, "spec": specs[rank]}
+
+    def train(leg, steps, runner=None, tap=None):
+        """`steps` S-SGD steps from the seed-0 weights: per step the ms,
+        the parameters' digest, the session's ring wire bytes, the walks'
+        ms (with `tap`) and, under a PolicyRunner, what its signals say of
+        the cluster."""
+        sess = peer.current_session()
+        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        params = list(model.parameters())
+        opt = kf.SynchronousSGDOptimizer(torch.optim.SGD(params, lr=FX_LR), name=f"fx{leg}")
+        r = {"epoch": sess.cluster_version, "step_ms": [], "digests": [], "wire": [],
+             "signals": [], "walk_ms": []}
+        for step in range(steps):
+            n_walks = len(tap.walk_ms) if tap is not None else 0
+            torch.cuda.synchronize()
+            with (runner.step() if runner is not None else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                resnet_loss(model, batches[step]).backward()
+                opt.step()
+                torch.cuda.synchronize()
+                r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["digests"].append(_digest(torch.cat([p.detach().reshape(-1) for p in params])))
+            r["wire"].append(sum(v for key, v in sess.wire_bytes.items()
+                                 if key[0] in FX_TRAIN_COLLECTIVES and key[1:] == FX_WIRE))
+            if tap is not None:
+                r["walk_ms"].append(sum(tap.walk_ms[n_walks:]))
+            if runner is not None:
+                m = runner.ctx.metrics
+                r["signals"].append({key: m.get(key) for key in (
+                    "step/critical_peer", "step/critical_edge", "cluster/updated_at",
+                    "step/overlap_frac", "step/queue_delay_frac")})
+        return r, sess
+
+    # calibration: the unshaped ring on the step-end path; rank 0 picks the rate
+    calib, sess = train("calib", FX_CALIB_STEPS, tap=_RoundTap(sess))
+    walk_s = _rp_median(calib["walk_ms"][1:]) / 1e3
+    rate = int(calib["wire"][-1] / FX_CALIB_STEPS / (RP_SLOWDOWN * walk_s))
+    rate = int(sess.broadcast_bytes(str(rate).encode(), "kungfu::fx:rate").decode())
+    rec.update(calib=calib, rate=rate)
+
+    # (a) the edge 1 -> 2 shaped, the async hook path on, a fresh cluster epoch
+    os.environ["KF_SHAPE_LINKS"] = f"{specs[1]}>{specs[2]}=bw:{rate}"
+    os.environ["KF_CONFIG_ASYNC"] = "on"
+    peer.cluster_version += 1
+    peer._update_to(peer.config.peers)
+    runner = PolicyRunner([], batch_size=OPT_BATCH)
+    with runner:
+        a, sess = train("a", FX_STEPS, runner)
+        sched = sess.scheduler()
+        a["unit_elems"] = [b // 4 for _, b in sorted(sched._unit_bytes.items())]
+        sess.barrier(":fx:a")
+        # the aggregator merges a round once a newer one exists, and a
+        # worker's health cache refreshes every 5 s: read the signals
+        # until they name an edge from a refresh after the last step's
+        t_end, seen = time.monotonic(), {s["cluster/updated_at"] for s in a["signals"]}
+        while time.monotonic() - t_end < FX_SIGNAL_WAIT_S:
+            runner._signals_at = 0.0
+            runner._pull_cluster_signals()
+            m = runner.ctx.metrics
+            seen.add(m.get("cluster/updated_at"))
+            if m.get("step/critical_edge") and len(seen - {None}) >= 2:
+                break
+            time.sleep(0.5)
+        a["final_signals"] = {key: runner.ctx.metrics.get(key) for key in (
+            "step/critical_peer", "step/critical_edge", "cluster/updated_at",
+            "cluster/stragglers")}
+        a["updated_at_seen"] = sorted(seen - {None})
+    rec["a"] = a
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    sess.barrier(":fx:written")
+
+    # (b) rank 0 takes the phase's SIGUSR2; then rank 3 SIGKILLs itself
+    if rank == 0:
+        (out / "usr2_ready").write_text(str(os.getpid()))
+    if rank == 3:
+        deadline = time.monotonic() + 120
+        while not (out / "kill_ok").exists():
+            if time.monotonic() > deadline:
+                return 1
+            time.sleep(0.1)
+        print(FX_LAST_WORDS, flush=True)
+        time.sleep(0.5)  # the runner's pump reads the line before the kill
+        (out / "kill_at").write_text(repr(time.time()))
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(FX_DEADLINE_S)  # a survivor: the recovery's SIGTERM stops it
+    return 1
+
+
+def _fx_get(url: str, timing=None):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=30) as r:
+        body = r.read()
+    if timing is not None:
+        timing.append({"ms": (time.perf_counter() - t0) * 1e3, "bytes": len(body)})
+    return body.decode()
+
+
+def forensics_phase(smi: str) -> None:
+    """Run-level forensics on the card: 4 workers of this script
+    (`--forensics-worker`) on card 0 under the port's kfrun `-w
+    -auto-recover 30s -builtin-config-port 0 -debug-port` train ResNet-50
+    at 16 images of 224² a rank by S-SGD over the host plane (metrics,
+    trace and audit on, a flight snapshot every 0.5 s, the aggregator
+    sweeping every 1 s; the run dir under build/chip_smoke_fx/run). (a)
+    After an unshaped calibration the edge rank 1 -> 2 is shaped to 4x the
+    unshaped walk, 12 steps on the async hook path (2 buckets); (b) the
+    phase sends rank 0 a SIGUSR2, rank 3 SIGKILLs itself, the phase waits
+    for its postmortem on /cluster/postmortem and stops kfrun with
+    SIGTERM."""
+    import shutil
+    import signal
+
+    from kungfu_tpu_torch.runner.cli import free_port_range, free_ports
+    from kungfu_tpu_torch.telemetry import flight
+
+    t_phase = time.perf_counter()
+    k = FX_RANKS
+    shutil.rmtree(FX_OUT, ignore_errors=True)
+    FX_OUT.mkdir(parents=True)
+    run_dir = FX_OUT / "run"
+    base = free_port_range(k)
+    runner_port, debug_port = free_ports(2)
+    specs = [f"127.0.0.1:{base + i}" for i in range(k)]
+    env = {key: v for key, v in os.environ.items() if not key.startswith("KF_")}
+    env.update(FX_KNOBS, KF_TELEMETRY_DIR=str(run_dir), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    here = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "kungfu_tpu_torch.runner.cli", "-np", str(k), "-H",
+           f"127.0.0.1:{k}", "-w", "-auto-recover", "30s", "-builtin-config-port", "0",
+           "-debug-port", str(debug_port), "-port-range", f"{base}-{base + k - 1}",
+           "-runner-port", str(runner_port), "-monitor-port", "0", "-warm-spares", "0",
+           "-timeout", str(FX_DEADLINE_S), sys.executable, "chip_smoke.py",
+           "--forensics-worker", str(FX_OUT)]
+    url = f"http://127.0.0.1:{debug_port}"
+    log_out, log_err = (FX_OUT / "kfrun.out").open("w"), (FX_OUT / "kfrun.err").open("w")
+    p = subprocess.Popen(cmd, cwd=here, env=env, stdout=log_out, stderr=log_err)
+    timing = {"/steptrace": [], "/cluster/steps": [], "/cluster/health": []}
+    health_during = []
+
+    def alive(what):
+        check(p.poll() is None, f"forensics: kfrun exited {p.returncode} {what}; its log is "
+              f"{FX_OUT / 'kfrun.err'}:\n{(FX_OUT / 'kfrun.err').read_text()[-3000:]}")
+
+    try:
+        # leg (a): the cluster's views while the workers train
+        deadline = time.monotonic() + FX_DEADLINE_S
+        while not all((FX_OUT / f"rank{r}.json").exists() for r in range(k)):
+            alive("before leg (a) ended")
+            check(time.monotonic() < deadline, "forensics: leg (a) did not end")
+            try:
+                health_during.append(json.loads(_fx_get(url + "/cluster/health",
+                                                         timing["/cluster/health"])))
+                _fx_get(url + "/cluster/steps", timing["/cluster/steps"])
+            except OSError:
+                pass  # the debug endpoint comes up with kfrun
+            time.sleep(FX_SCRAPE_INTERVAL)
+        ranks = [json.loads((FX_OUT / f"rank{r}.json").read_text()) for r in range(k)]
+        time.sleep(2 * FX_SCRAPE_INTERVAL + 0.5)  # two sweeps past the last step
+        steptraces = []
+        for spec in specs:
+            port = int(spec.rsplit(":", 1)[1]) + 10000
+            for _ in range(3):
+                doc = json.loads(_fx_get(f"http://127.0.0.1:{port}/steptrace",
+                                         timing["/steptrace"]))
+            steptraces.append(doc)
+        for _ in range(3):
+            steps_doc = json.loads(_fx_get(url + "/cluster/steps", timing["/cluster/steps"]))
+            health_after = json.loads(_fx_get(url + "/cluster/health",
+                                              timing["/cluster/health"]))
+        cluster_metrics = _fx_get(url + "/cluster/metrics")
+
+        # leg (b): SIGUSR2 to rank 0, then rank 3's SIGKILL and its postmortem
+        t0 = time.monotonic()
+        while not (FX_OUT / "usr2_ready").exists():
+            alive("before rank 0 named its pid")
+            check(time.monotonic() - t0 < 60, "forensics: rank 0 never named its pid")
+            time.sleep(0.1)
+        os.kill(int((FX_OUT / "usr2_ready").read_text()), signal.SIGUSR2)
+        dir0 = flight.peer_dir(str(run_dir), specs[0])
+        t0 = time.monotonic()
+        while not any(r.get("kind") == "dump" for r in flight.read_journal(dir0)[0]):
+            check(time.monotonic() - t0 < 30, "forensics: no dump record after SIGUSR2")
+            time.sleep(0.1)
+        (FX_OUT / "kill_ok").write_text("go")
+        t0 = time.monotonic()
+        while True:
+            alive("before the postmortem showed")
+            check(time.monotonic() - t0 < 120, "forensics: no postmortem on /cluster/postmortem")
+            pms = json.loads(_fx_get(url + "/cluster/postmortem"))
+            if pms["deaths"]:
+                t_seen = time.time()
+                break
+            time.sleep(0.1)
+        audit_doc = json.loads(_fx_get(url + "/cluster/audit"))
+        p.terminate()  # kfrun dies; kf-pdeathsig sends every worker SIGTERM
+        p.wait(60)
+        time.sleep(3.0)  # the workers' SIGTERM flushes
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+        log_out.close()
+        log_err.close()
+    views = dict(specs=specs, steptraces=steptraces, steps_doc=steps_doc,
+                 health_during=health_during, health_after=health_after,
+                 cluster_metrics=cluster_metrics, pms=pms, audit_doc=audit_doc, t_seen=t_seen,
+                 timing=timing)
+    (FX_OUT / "views.json").write_text(json.dumps(views))  # what the gates read, for a look
+    forensics_gates(smi, ranks=ranks, t_phase=t_phase, **views)
+
+
+def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, health_after,
+                    cluster_metrics, pms, audit_doc, t_seen, timing, t_phase) -> None:
+    """The forensics phase's gates and its line, from the workers' records
+    and the views the phase read (`views.json` in FX_OUT)."""
+    import statistics
+
+    from kungfu_tpu_torch.telemetry import flight, promparse
+
+    k = len(specs)
+    run_dir = str(FX_OUT / "run")
+    for leg in ("calib", "a"):
+        check(len({tuple(r[leg]["digests"]) for r in ranks}) == 1,
+              f"forensics {leg}: the ranks' parameters differ after some step")
+    epoch = ranks[0]["a"]["epoch"]
+    units = ranks[0]["a"]["unit_elems"]
+    check(len(units) == 2 and all(r["a"]["unit_elems"] == units for r in ranks),
+          f"forensics: the scheduler's buckets {units} are not 2 alike on every rank")
+
+    # every rank's /steptrace: one timeline a sampled round, a lane a bucket
+    rounds_all = []
+    for r, doc in enumerate(steptraces):
+        tls = [t for t in doc["timelines"] if t["epoch"] == epoch]
+        rounds = [t["round"] for t in tls]
+        rounds_all.append(rounds)
+        check(len(rounds) >= FX_STEPS - 2 and rounds == list(range(rounds[0], rounds[0] + len(rounds))),
+              f"forensics rank {r}: /steptrace rounds {rounds}")
+        for t in tls:
+            lanes = t["buckets"]
+            check([b["index"] for b in lanes] == list(range(len(units)))
+                  and all(b["walk_us"] > 0 and b["t_walk_us"] is not None
+                          and b["edge"] == specs[(r + 1) % k] for b in lanes)
+                  and 0 <= t["overlap_frac"] <= 1 and 0 <= t["queue_delay_frac"] <= 1,
+                  f"forensics rank {r} round {t['round']}: lanes {lanes}")
+    # /cluster/steps: the shaped edge elected in each of the last FX_LAST steps
+    merged = [s for s in steps_doc["steps"] if s["epoch"] == epoch]
+    last = merged[-FX_LAST:]
+    check(len(last) == FX_LAST and all(
+        (s["critical"] or {}).get("peer") == specs[1]
+        and (s["critical"] or {}).get("edge") == specs[2] for s in last),
+        f"forensics: the last merged steps elect {[s['critical'] for s in last]}")
+    check(all(0 <= s["overlap_frac"] <= 1 and 0 <= s["queue_delay_frac"] <= 1 for s in merged),
+          "forensics: a merged step's overlap or queue-delay fraction is outside [0, 1]")
+    # /cluster/health while the workers trained: every peer stepping
+    live = [h for h in health_during if sorted(h["peers"]) == sorted(specs) and all(
+        (info["step_rate"] or 0) > 0 for info in h["peers"].values())
+        and (h.get("steps") or {}).get("critical_edge")]
+    check(bool(live), "forensics: no /cluster/health during leg (a) had every peer stepping")
+    health = live[-1]
+    for label, info in health["peers"].items():
+        check(info["step_time_p50_ms"] <= info["step_time_p99_ms"],
+              f"forensics: {label}'s step p50 {info['step_time_p50_ms']} over its p99")
+    check((health["steps"]["critical_peer"], health["steps"]["critical_edge"])
+          == (specs[1], specs[2]), f"forensics: /cluster/health's steps {health['steps']}")
+    # every rank's PolicyRunner read the election, from advancing refreshes
+    for r in ranks:
+        fin = r["a"]["final_signals"]
+        check(fin["step/critical_edge"] == specs[2] and fin["step/critical_peer"] == specs[1]
+              and len(r["a"]["updated_at_seen"]) >= 2,
+              f"forensics rank {r['rank']}: ctx.metrics {fin}, refreshes "
+              f"{r['a']['updated_at_seen']}")
+    # /cluster/metrics: each rank's ring bytes under its peer label, exactly
+    wire = {}
+    for s in promparse.parse_text(cluster_metrics):
+        labels = dict(s.labels)
+        if s.name == "kungfu_collective_wire_bytes_total" \
+                and labels.get("collective") in FX_TRAIN_COLLECTIVES \
+                and (labels.get("strategy"), labels.get("codec")) == FX_WIRE:
+            wire[labels["peer"]] = wire.get(labels["peer"], 0) + s.value
+    want = {specs[r]: _ring_bytes_total(units, k, r) for r in range(k)}
+    own = {r["spec"]: r["calib"]["wire"][-1] + r["a"]["wire"][-1] for r in ranks}
+    check(wire == want == own, f"forensics: ring wire bytes under peer= labels {wire}, the "
+          f"workers' own {own}, the formula {want}")
+    for r in ranks:
+        per_step = sum(_ring_bytes(n, k, r["rank"]) for n in units)
+        for leg in ("calib", "a"):
+            w = r[leg]["wire"]
+            deltas = [b - a for a, b in zip([0] + w, w)]
+            check(deltas == [per_step] * len(w),
+                  f"forensics {leg} rank {r['rank']}: ring bytes a step {deltas}, the formula "
+                  f"gives {per_step}")
+
+    # (b) the postmortem at every surface
+    dead = specs[3]
+    check(pms["deaths"] == 1 and list(pms["peers"]) == [dead],
+          f"forensics: /cluster/postmortem holds {list(pms['peers'])}")
+    pm = pms["peers"][dead][0]
+    check(pm["death"] == "signal SIGKILL (-9)" and pm["clean_exit"] is False,
+          f"forensics: the postmortem says {pm['death']}, clean_exit {pm['clean_exit']}")
+    check(pm["last_step"] is not None and FX_STEPS - 1 <= pm["last_step"] <= FX_STEPS,
+          f"forensics: the postmortem's last step {pm['last_step']}")
+    check(any(FX_LAST_WORDS in line for line in pm["output_tail"]),
+          "forensics: the postmortem's output tail lacks rank 3's last line")
+    check(bool(pm["last_step_timeline"]) and pm["last_step_timeline"]["buckets"]
+          and "async_mode" in [d["kind"] for d in pm["last_decisions"]],
+          "forensics: the postmortem lacks the step ring or the ledger's tail")
+    jsonl = flight.read_postmortems(run_dir)
+    runner_pms = [rec for rec in audit_doc if rec["kind"] == "worker_postmortem"]
+    check([x["peer"] for x in jsonl] == [dead] and len(runner_pms) == 1
+          and runner_pms[0]["peer"] == dead,
+          f"forensics: postmortems.jsonl {[x['peer'] for x in jsonl]}, runner audit "
+          f"{runner_pms}")
+    text = flight.render_postmortem(pm)
+    check("SIGKILL" in text and f"last step: {int(pm['last_step'])}" in text,
+          "forensics: the rendered postmortem names neither the signal nor the last step")
+    journals = {}
+    for r, spec in enumerate(specs):
+        recs, errors = flight.read_journal(flight.peer_dir(run_dir, spec))
+        kinds = [x["kind"] for x in recs]
+        jdir = Path(flight.peer_dir(run_dir, spec))
+        journals[spec] = {"bytes": sum(f.stat().st_size for f in jdir.glob("journal*.bin")),
+                          "snapshots": kinds.count("snapshot"), "records": len(recs),
+                          "errors": errors, "last": kinds[-1] if kinds else None}
+        if r < 3:
+            check(errors == [] and recs[-1]["kind"] == "exit" and recs[-1]["reason"] == "sigterm",
+                  f"forensics: survivor {spec}'s journal ends {recs[-1] if recs else None}, "
+                  f"errors {errors}")
+    recs0 = flight.read_journal(flight.peer_dir(run_dir, specs[0]))[0]
+    check(any(x["kind"] == "dump" and x.get("reason") == "sigusr2" for x in recs0),
+          "forensics: rank 0's journal holds no SIGUSR2 dump")
+
+    # the kill -> postmortem split: detection is the rest once the harvest
+    # (timed again here on the same dir and tail) is taken out
+    kill_at = float((FX_OUT / "kill_at").read_text())
+    t0 = time.perf_counter()
+    flight.harvest_postmortem(run_dir, dead, exit_code=-9, output_tail=pm["output_tail"])
+    harvest_ms = (time.perf_counter() - t0) * 1e3
+    recorded_ms = (runner_pms[0]["wall_time"] - kill_at) * 1e3
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    def scrape(ep):
+        # the last scrape is after leg (a), with every merged step in the views
+        return {"median_ms": med([x["ms"] for x in timing[ep]]),
+                "max_ms": max([x["ms"] for x in timing[ep]], default=None),
+                "median_bytes": med([x["bytes"] for x in timing[ep]]), "n": len(timing[ep]),
+                "last_ms": timing[ep][-1]["ms"], "last_bytes": timing[ep][-1]["bytes"]}
+
+    step_ms = [r["a"]["step_ms"][2:] for r in ranks]  # past the step-end path and registration
+    sweeps = [h["plane"]["sweep_seconds"] for h in health_during + [health_after]
+              if (h.get("plane") or {}).get("sweep_seconds") is not None]
+    emit("forensics", nvidia_smi=smi, ranks=k, images_per_rank=OPT_BATCH, steps=FX_STEPS,
+         calib_steps=FX_CALIB_STEPS, rate_bytes_per_s=ranks[0]["rate"], buckets=len(units),
+         step_ms={"median": med([x for s in step_ms for x in s]),
+                  "min": min(x for s in step_ms for x in s),
+                  "max": max(x for s in step_ms for x in s),
+                  "slowest_rank_median": max(med(s) for s in step_ms)},
+         calib_step_ms=[r["calib"]["step_ms"] for r in ranks],
+         critical={"peer": specs[1], "edge": specs[2],
+                   "ms": [round((s["critical"]["self_us"] or 0) / 1e3, 3) for s in last]},
+         overlap_frac=[s["overlap_frac"] for s in last],
+         queue_delay_frac=[s["queue_delay_frac"] for s in last],
+         merged_steps=len(merged), rounds_per_rank=[len(x) for x in rounds_all],
+         scrape={ep: scrape(ep) for ep in timing},
+         aggregator_sweep_s={"median": med(sweeps), "max": max(sweeps, default=None)},
+         health_snapshots=len(health_during), wire_bytes=wire, journals=journals,
+         kill_to_postmortem_ms={"recorded": recorded_ms, "harvest": harvest_ms,
+                                "detection": recorded_ms - harvest_ms,
+                                "seen_by_phase": (t_seen - kill_at) * 1e3},
+         postmortem={"last_step": pm["last_step"], "journal_records": pm["journal_records"],
+                     "last_record_age_s": pm["last_record_age_s"],
+                     "output_tail_lines": len(pm["output_tail"]),
+                     "decisions": [d["kind"] for d in pm["last_decisions"]]},
+         seconds=time.perf_counter() - t_phase)
+
+
+def _ring_bytes_total(units, k: int, rank: int) -> int:
+    """The segmented ring's f32 bytes `rank` sends over the phase: every
+    step (calibration and leg (a)) walks the same 2 buckets."""
+    return (FX_CALIB_STEPS + FX_STEPS) * sum(_ring_bytes(n, k, rank) for n in units)
+
+
 ELASTIC_SCHEDULE = "2:3,4:3,2:3"  # workers: steps
 ELASTIC_SIZES = [2, 2, 2, 4, 4, 4, 2, 2, 2]
 ELASTIC_BATCH = 16  # images a rank a step, 224x224
@@ -4236,6 +4710,7 @@ def main() -> int:
     async_phase(smi)
     telemetry_phase(smi)
     replan_phase(smi)
+    forensics_phase(smi)
     elastic_phase(smi)
     t_new = time.perf_counter()
     checkpoint_phase(smi)
@@ -4281,6 +4756,8 @@ def _dispatch(argv) -> int:
     if "--checkpoint-worker" in argv:
         i = argv.index("--checkpoint-worker")
         return checkpoint_worker(argv[i + 1], argv[i + 2], argv[i + 3] == "1")
+    if "--forensics-worker" in argv:
+        return forensics_worker(argv[argv.index("--forensics-worker") + 1])
     if "--adaptive-worker" in argv:
         return adaptive_worker()
     return main()

@@ -49,8 +49,16 @@ Telemetry, as the reference's: the stage threads enter
 ``sched.*`` spans carry a ``step`` arg; with metrics on the scheduler
 keeps ``kungfu_scheduler_queued_buckets``,
 ``kungfu_scheduler_overlap_seconds_total`` and
-``kungfu_scheduler_flush_wait_seconds``. Not ported: the step timelines
-and the memory-plane accountant (ROADMAP items 1e-iii and 1e-iv).
+``kungfu_scheduler_flush_wait_seconds``.
+
+Step plane, as the reference's: each round records one
+:class:`~kungfu_tpu_torch.telemetry.steptrace.StepRecorder` (subject to
+``KF_TELEMETRY_SPAN_SAMPLE``), begun at the round's FIRST submission and
+sealed at ``flush`` — per bucket lane the submit → launch queue delay,
+the walk span with the walk engine's wait/send/edge attribution (fed
+through ``steptrace.walk_sink`` on the walk thread), the unpack, and
+ZeRO's weight all-gather tail. Served at ``/steptrace``. The
+memory-plane accountant of in-flight payloads is ROADMAP item 1e-iv.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from kungfu_tpu_torch.base.workspace import Workspace
 from kungfu_tpu_torch.collective.codec import dtype_str
 from kungfu_tpu_torch.telemetry import config as tconfig
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
+from kungfu_tpu_torch.telemetry import steptrace
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.handoff import HandoffQueue
 from kungfu_tpu_torch.utils.stall import stall_detect
@@ -114,9 +123,17 @@ class CollectiveScheduler:
     def __init__(self, sess):
         self.sess = sess
         # the session epoch, stamped with the round on every stage span
+        # and step timeline: the CLUSTER version, identical on every peer
+        # of the epoch, so the aggregator groups timelines cross-peer
         self.epoch_id = int(getattr(sess, "cluster_version", 0))
         self.queue_depth = max(1, int(knobs.get("KF_CONFIG_ASYNC_QUEUE")))
         self._unit_bytes: Dict[int, int] = {}  # unit index -> payload bytes
+        # current round's step recorder (None: sampled out / registration
+        # round / plane off); per-unit lane metadata derived from the plan
+        # so lanes are labelled without touching workspaces off-thread
+        self._steprec: Optional[steptrace.StepRecorder] = None
+        self._key_unit: Dict[_Key, int] = {}
+        self._unit_meta: Dict[int, Tuple[str, str, int, int]] = {}
         self._cond = threading.Condition()
         self._abort = threading.Event()
         self._errors: List[BaseException] = []
@@ -222,6 +239,16 @@ class CollectiveScheduler:
                     f"{self._round} — call flush() between rounds")
             self._submitted.add(key)
             self._pending[key] = w
+            # step plane: the round's recorder begins at its FIRST
+            # submission (a sampled-out round allocates nothing, and every
+            # note below is a no-op through the None guard)
+            if len(self._submitted) == 1 and self._plan:
+                self._steprec = steptrace.get_store().begin_step(self.epoch_id, self._round)
+            rec = self._steprec
+            if rec is not None:
+                ui = self._key_unit.get(key)
+                if ui is not None:
+                    rec.bucket(ui, *self._unit_meta[ui]).note_submit(time.perf_counter() * 1e6)
             self._cond.notify_all()
 
     def flush(self, timeout: Optional[float] = None) -> None:
@@ -286,6 +313,12 @@ class CollectiveScheduler:
                 self._stat["flush_wait_s"] += wait
                 self._stat["busy_s"] += busy
                 self._stat["overlap_s"] += max(0.0, busy - wait)
+                # seal the step timeline (the ring holds the recorder, so
+                # a ZeRO gather tail landing after this still writes its
+                # lane, rendered at export time)
+                rec, self._steprec = self._steprec, None
+                if rec is not None:
+                    rec.finish(flush_wait_s=wait, busy_s=busy)
                 self._cond.notify_all()
         if self._flush_wait_ctr is not None:
             self._flush_wait_ctr.inc(wait)
@@ -410,6 +443,17 @@ class CollectiveScheduler:
         known = set(registry)
         unit_bytes = {u.index: sum(k[1] * np.dtype(k[2]).itemsize for k in u.keys)
                       for u in plan}
+        # step-plane lane metadata: a pure function of the plan, computed
+        # once so the submit hot path only does dict lookups
+        key_unit: Dict[_Key, int] = {}
+        unit_meta: Dict[int, Tuple[str, str, int, int]] = {}
+        for u in plan:
+            label = u.keys[0][0]
+            if len(u.keys) > 1:
+                label += f"+{len(u.keys) - 1}"
+            unit_meta[u.index] = (u.kind, label, unit_bytes[u.index], len(u.keys))
+            for k in u.keys:
+                key_unit[k] = u.index
         with self._cond:
             # validate everything before committing any state; submissions
             # that raced into the consensus window are checked against the
@@ -437,6 +481,8 @@ class CollectiveScheduler:
             self._known = known
             self._plan = plan
             self._unit_bytes = unit_bytes
+            self._key_unit = key_unit
+            self._unit_meta = unit_meta
             self._pending.update(pending)
             self._submitted |= submitted
             self._first_round.clear()
@@ -522,7 +568,10 @@ class CollectiveScheduler:
 
     def _claim_next(self):
         """Launcher: block until the next unit in plan order has all its
-        members submitted; returns (unit, members, round) or None to exit.
+        members submitted; returns (unit, members, round, step recorder)
+        or None to exit. The recorder travels WITH the unit through the
+        stage queues: a ZeRO gather tail lands after flush advanced the
+        round, and must still write the round it belongs to.
         Launch STRICTLY in registered order: the cross-peer determinism
         contract."""
         with self._cond:
@@ -535,7 +584,7 @@ class CollectiveScheduler:
                     if all(k in self._pending for k in unit.keys):
                         self._next_unit += 1
                         members = [self._pending.pop(k) for k in unit.keys]
-                        return unit, members, self._round
+                        return unit, members, self._round, self._steprec
                 self._cond.wait(0.2)
 
     def _launch_loop(self) -> None:
@@ -544,7 +593,11 @@ class CollectiveScheduler:
                 claimed = self._claim_next()
                 if claimed is None:
                     return
-                unit, members, rnd = claimed
+                unit, members, rnd, rec = claimed
+                lane = (rec.bucket(unit.index, *self._unit_meta[unit.index])
+                        if rec is not None else None)
+                if lane is not None:
+                    lane.note_launch(time.perf_counter() * 1e6)
                 t0 = time.perf_counter()
                 for w in members:
                     if w.ready is not None:
@@ -567,7 +620,7 @@ class CollectiveScheduler:
                                 None, None, members)
                 self._add_busy(time.perf_counter() - t0, queued=+1,
                                nbytes=self._unit_bytes[unit.index])
-                if not self._walkq.put((unit, rnd, item)):
+                if not self._walkq.put((unit, lane, rnd, item)):
                     return  # aborted while the queue was full
         except BaseException as e:  # noqa: BLE001 - channeled to flush()
             self._record_error(e)
@@ -582,13 +635,17 @@ class CollectiveScheduler:
                     return
                 if self._abort.is_set():
                     continue  # drain to the sentinel
-                unit, rnd, item = got
+                unit, lane, rnd, item = got
                 t0 = time.perf_counter()
                 if unit.kind == "zero":
                     with trace.step_scope(self.epoch_id, rnd), \
-                            trace.span("sched.walk", unit=unit.index):
+                            trace.span("sched.walk", unit=unit.index), \
+                            steptrace.walk_sink(lane):
                         item = self._handler.reduce_and_update(item, cancel=self._abort)
-                    self._add_busy(time.perf_counter() - t0)
+                    dt = time.perf_counter() - t0
+                    if lane is not None:
+                        lane.note_walk_span(t0 * 1e6, dt * 1e6)
+                    self._add_busy(dt)
                     # the shard is updated: the gradients are consumed, so
                     # this unit passes the flush barrier now; its weight
                     # all-gather overlaps the caller's next-step compute
@@ -596,19 +653,23 @@ class CollectiveScheduler:
                         self._grad_done += 1
                         self._gather_outstanding += 1
                         self._cond.notify_all()
-                    if not self._gatherq.put((unit, rnd, item)):
+                    if not self._gatherq.put((unit, lane, rnd, item)):
                         return
                     continue
                 with trace.step_scope(self.epoch_id, rnd), \
-                        trace.span("sched.walk", unit=unit.index):
+                        trace.span("sched.walk", unit=unit.index), \
+                        steptrace.walk_sink(lane):
                     if unit.fused:
                         deferred = self.sess._allreduce_ws(item[0], cancel=self._abort,
                                                            defer_decode=True)
                     else:
                         self.sess._allreduce_ws(item[0], cancel=self._abort)
                         deferred = None
-                self._add_busy(time.perf_counter() - t0)
-                if not self._gatherq.put((unit, rnd, item + (deferred,))):
+                dt = time.perf_counter() - t0
+                if lane is not None:
+                    lane.note_walk_span(t0 * 1e6, dt * 1e6)
+                self._add_busy(dt)
+                if not self._gatherq.put((unit, lane, rnd, item + (deferred,))):
                     return
         except BaseException as e:  # noqa: BLE001 - channeled to flush()
             self._record_error(e)
@@ -625,14 +686,18 @@ class CollectiveScheduler:
                     return
                 if self._abort.is_set():
                     continue  # drain to the sentinel
-                unit, rnd, item = got
+                unit, lane, rnd, item = got
                 if unit.kind == "zero":
                     t0 = time.perf_counter()
                     with trace.step_scope(self.epoch_id, rnd), \
-                            trace.span("sched.gather", unit=unit.index):
+                            trace.span("sched.gather", unit=unit.index), \
+                            steptrace.walk_sink(lane, gather=True):
                         item = self._handler.gather(item, cancel=self._abort)
-                    self._add_busy(time.perf_counter() - t0)
-                if not self._unpackq.put((unit, rnd, item)):
+                    dt = time.perf_counter() - t0
+                    if lane is not None:
+                        lane.note_gather_span(t0 * 1e6, dt * 1e6)
+                    self._add_busy(dt)
+                if not self._unpackq.put((unit, lane, rnd, item)):
                     return
         except BaseException as e:  # noqa: BLE001 - channeled to flush()
             self._record_error(e)
@@ -647,14 +712,17 @@ class CollectiveScheduler:
                     return
                 if self._abort.is_set():
                     continue  # aborted: must not touch caller buffers
-                unit, rnd, item = got
+                unit, lane, rnd, item = got
                 t0 = time.perf_counter()
                 nbytes = self._unit_bytes[unit.index]
                 if unit.kind == "zero":
                     with trace.step_scope(self.epoch_id, rnd), \
                             trace.span("sched.unpack", unit=unit.index):
                         self._handler.scatter(item, cancel=self._abort)
-                    self._add_busy(time.perf_counter() - t0, queued=-1, nbytes=-nbytes)
+                    dt = time.perf_counter() - t0
+                    if lane is not None:
+                        lane.note_unpack(dt * 1e6)
+                    self._add_busy(dt, queued=-1, nbytes=-nbytes)
                     with self._cond:
                         self._gather_outstanding -= 1
                         self._stat["units"] += 1
@@ -668,7 +736,10 @@ class CollectiveScheduler:
                 elif item[4] is not None:
                     # single: the walk wrote w.recv in place
                     item[4].close()
-                self._add_busy(time.perf_counter() - t0, queued=-1, nbytes=-nbytes)
+                dt = time.perf_counter() - t0
+                if lane is not None:
+                    lane.note_unpack(dt * 1e6)
+                self._add_busy(dt, queued=-1, nbytes=-nbytes)
                 with self._cond:
                     self._grad_done += 1
                     self._stat["units"] += 1

@@ -58,6 +58,7 @@ from kungfu_tpu_torch.collective.codec import DeferredDecode
 from kungfu_tpu_torch.collective.profiler import WalkProfile, get_walk_profiler
 from kungfu_tpu_torch.plan import topology as topo
 from kungfu_tpu_torch.plan.graph import Graph
+from kungfu_tpu_torch.telemetry import steptrace
 from kungfu_tpu_torch.plan.peer import PeerID
 from kungfu_tpu_torch.telemetry import audit
 from kungfu_tpu_torch.transport.message import ConnType, Flags
@@ -195,15 +196,22 @@ class WalkEngine:
             self._wire_saved_ctr.labels(self._wire_kind, codec).inc(raw_bytes - nbytes)
 
     def _record_walk(self, strategy_label: str, k: int, payload_bytes: int, wall: float,
-                     prof: WalkProfile, dsts=None) -> None:
+                     prof: WalkProfile, dsts=None, sink=None) -> None:
         """Feed one finished allreduce walk to the process profiler,
         scored against the slowest measured link the walk used (every
-        estimated link when `dsts` is None: graph walks fan out)."""
-        link_bw = None
+        estimated link when `dsts` is None: graph walks fan out). `sink`
+        (a captured steptrace sink) gets the same attribution with the
+        walk's dominant edge — the ring's successor when the walk names
+        one, else the slowest estimated link — so the step timeline can
+        name the blocking edge."""
+        link_dst = link_bw = None
         if self._links is not None:
-            _, link_bw = self._links.min_bandwidth(dsts)
+            link_dst, link_bw = self._links.min_bandwidth(dsts)
         get_walk_profiler().record(self._wire_kind, strategy_label, k, payload_bytes,
                                    wall, prof.wait, prof.send, link_bw)
+        if sink is not None:
+            edge = str(dsts[0]) if dsts else link_dst
+            steptrace.note_walk(sink, strategy_label, wall, prof.wait, prof.send, edge)
 
     def _walk_label(self) -> str:
         """Strategy label for graph-walk wire accounting: the graphs that
@@ -318,6 +326,9 @@ class WalkEngine:
         if self.rank not in members or k == 1:
             w.forward()
             return None
+        # capture the step-plane sink on THIS thread before any work, as
+        # the graph walk does (its chunk jobs hop to pool threads)
+        steptrace_sink = steptrace.current_sink()
         sched = topo.gen_segmented_schedule(members, members.index(self.rank))
         bounds = topo.segment_bounds(w.recv.numel(), k, weights)
         w.forward()  # seed the accumulator with own contribution
@@ -599,7 +610,7 @@ class WalkEngine:
             # half walks move (k-1)/k·N = the optimal 2(k-1)/k volume of
             # HALF the payload: score against the halved payload
             self._record_walk(Strategy.RING_SEGMENTED.name, k, w.recv.nbytes // 2, wall, prof,
-                              dsts=[send_peer])
+                              dsts=[send_peer], sink=steptrace_sink)
             return None
         if wire is not None:
             # seed the all-gather: quantize the owned (fully reduced)
@@ -644,7 +655,7 @@ class WalkEngine:
         trace.record(f"host.segmented[{w.recv.nbytes >> 20}MiB]", wall)
         self._record_walk(Strategy.RING_SEGMENTED.name, k,
                           w.recv.nbytes if phase == "all" else w.recv.nbytes // 2, wall, prof,
-                          dsts=[send_peer])
+                          dsts=[send_peer], sink=steptrace_sink)
         return deferred
 
     # ------------------------------------------------------------------
@@ -733,17 +744,22 @@ class WalkEngine:
         chunks = w.split(even_partition, k) if k > 1 else [w]
         if cancel is None:
             cancel = threading.Event()
+        # capture the step-plane sink HERE (the submitting walk thread):
+        # chunk jobs run on pool threads, where the scheduler walker's
+        # thread-local sink is invisible
+        sink = steptrace.current_sink()
         if k == 1:
             pair = strategies[0]
             self._run_graphs(chunks[0], [pair.reduce_graph, pair.bcast_graph], cancel, wire,
-                             profile=True)
+                             profile=True, sink=sink)
             return
         jobs = []
         for i, chunk in enumerate(chunks):
             pair = st.choose(strategies, i)
             jobs.append(
                 lambda c=chunk, p=pair: self._run_graphs(
-                    c, [p.reduce_graph, p.bcast_graph], cancel, wire, profile=True))
+                    c, [p.reduce_graph, p.bcast_graph], cancel, wire, profile=True,
+                    sink=sink))
         _par(jobs, self.timeout, cancel)
 
     def _run_graphs(
@@ -753,6 +769,7 @@ class WalkEngine:
         cancel: Optional[threading.Event] = None,
         wire=None,
         profile: bool = False,
+        sink=None,
     ) -> None:
         """The hot walk; parity: runGraphs (session.go:231-299).
 
@@ -980,4 +997,4 @@ class WalkEngine:
         wall = time.perf_counter() - t_walk
         trace.record(f"host.walk[{w.recv.nbytes >> 20}MiB]", wall)
         if prof is not None:
-            self._record_walk(wire_label, self.size, w.recv.nbytes, wall, prof)
+            self._record_walk(wire_label, self.size, w.recv.nbytes, wall, prof, sink=sink)

@@ -397,6 +397,12 @@ _knob("KF_TELEMETRY_SPAN_SAMPLE", "1.0", _float,
 _knob("KF_TRACE_BUFFER", "8192", _int,
       "Span ring-buffer capacity (events) for the /trace view.",
       section=_SEC_TELEMETRY, kind="int")
+_knob("KF_STEP_TIMELINE_KEEP", "16", _int,
+      "Step-trace ring size: how many recent per-step critical-path "
+      "timelines each worker keeps (served at /steptrace, merged into "
+      "/cluster/steps, journaled by the flight recorder). 0 disables "
+      "the step plane entirely.",
+      section=_SEC_TELEMETRY, kind="int")
 _knob("KF_TELEMETRY_DIR", "", _str,
       "Per-run telemetry directory (flight-recorder journals, "
       "postmortems). kfrun mints one under /tmp/kungfu-telemetry and "
@@ -434,11 +440,70 @@ _knob("KF_DECISION_PATIENCE", "2", _int,
       "before `adaptation_regressed` fires.",
       section=_SEC_DECISION, kind="int")
 
+_SEC_FLIGHT = "Flight recorder"
+_knob("KF_FLIGHT", "", _bool,
+      "Explicit on/off override for the flight recorder; unset means "
+      "auto (on when `KF_TELEMETRY_DIR` is plumbed or any telemetry "
+      "feature is enabled).",
+      section=_SEC_FLIGHT, kind="bool", default_doc="auto")
+_knob("KF_FLIGHT_INTERVAL", "5.0", _float,
+      "Seconds between journal snapshots (a SIGKILL loses at most this "
+      "much history).",
+      section=_SEC_FLIGHT, kind="float")
+_knob("KF_FLIGHT_FSYNC", "", _bool,
+      "Truthy forces fsync after every journal frame (crash-safe at the "
+      "cost of write latency).",
+      section=_SEC_FLIGHT, kind="bool")
+_knob("KF_FLIGHT_MAX_BYTES", str(8 * 1024 * 1024), _int_bytes,
+      "Journal size bound; past it the journal rotates one generation.",
+      section=_SEC_FLIGHT, kind="int")
+
 _SEC_CLUSTER = "Cluster plane (runner-side aggregation)"
+_knob("KF_CLUSTER_HEALTH_URL", "", _str,
+      "The runner aggregator's debug endpoint base URL, injected into "
+      "every worker; workers pull cluster health signals from it and "
+      "`info top/links/postmortem` default to it.",
+      section=_SEC_CLUSTER, kind="url")
+_knob("KF_CLUSTER_SCRAPE_INTERVAL", "5.0", _float,
+      "Seconds between the aggregator's scrape sweeps over worker "
+      "telemetry endpoints.",
+      section=_SEC_CLUSTER, kind="float")
+_knob("KF_AGG_HIER_MIN_PEERS", "32", _int,
+      "At or above this many scrape targets the aggregator switches to "
+      "scale mode: hierarchical per-host fan-in (elected host heads "
+      "pre-merge their local workers into one /host/telemetry digest), "
+      "sampled link-matrix rotation and delta-cursor scrapes. Below it "
+      "the flat exact plane runs — small clusters keep today's "
+      "behavior bit-for-bit. 0 disables scale mode entirely.",
+      section=_SEC_CLUSTER, kind="int")
+_knob("KF_AGG_LINK_ROTATION_SWEEPS", "8", _int,
+      "In scale mode, the number of sweeps over which the link-matrix "
+      "row rotation covers every peer (each sweep ingests ~k/N rows). "
+      "Bounds every edge estimate's staleness at rotation_sweeps x "
+      "effective scrape interval.",
+      section=_SEC_CLUSTER, kind="int")
+_knob("KF_AGG_LINK_TOP_EDGES", "16", _int,
+      "In scale mode, the N slowest edges whose source rows are "
+      "re-ingested EVERY sweep regardless of rotation — the re-planner "
+      "input (min_bw / slowest_edge) can never be sampled out.",
+      section=_SEC_CLUSTER, kind="int")
 _knob("KF_AGG_LINK_MAX_AGE_S", "60.0", _float,
       "ReplanPolicy refuses to vote for a re-plan while the oldest "
       "sampled link-matrix row is older than this (the lockstep check "
       "still runs; this peer votes no). 0 disables the staleness gate.",
+      section=_SEC_CLUSTER, kind="float")
+_knob("KF_AGG_DELTA", "",
+      _choice("KF_AGG_DELTA", ("", "auto", "on", "off"), empty_as="auto"),
+      "Delta scrapes: ship only new/changed records off the ring-backed "
+      "worker endpoints (?since= cursors on /steptrace, /decisions, "
+      "/audit). `auto` (default) enables them in scale mode only; "
+      "`on`/`off` force.",
+      section=_SEC_CLUSTER, kind="choice", default_doc="auto")
+_knob("KF_AGG_MAX_BACKOFF", "8.0", _float,
+      "Upper bound on the aggregator's overload backoff multiplier: "
+      "when a sweep overruns the scrape interval the effective interval "
+      "doubles (audited `aggregator_overload`) up to interval x this, "
+      "and cools back down when sweeps recover.",
       section=_SEC_CLUSTER, kind="float")
 
 _SEC_LINK = "Link observability"

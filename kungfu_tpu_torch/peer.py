@@ -22,9 +22,14 @@ With any telemetry feature on (`KF_TELEMETRY`, or the metrics of
 peer/peer.go:96-104). A session epoch whose async or ZeRO mode resolves
 differently from the last opens an `async_mode`/`zero_mode` decision
 record, a resize a `resize` record on every surviving peer, and each
-new peer list prunes the link table of departed destinations. Not
-ported yet: the flight recorder and the host-role election (ROADMAP
-item 1e-iii).
+new peer list prunes the link table of departed destinations. Such a
+worker also serves `/steptrace` and `/host/telemetry`, and re-runs the
+host sub-aggregator election after every new peer list (at scale the
+lowest-labelled worker of each host pre-merges its siblings' telemetry
+for the runner's aggregator). A worker that is not `single_process`
+starts the flight recorder (`telemetry/flight.py`) when kfrun plumbs a
+run dir (`KF_TELEMETRY_DIR`) or any telemetry is on: its journal is the
+black box the runner harvests into a postmortem when the worker dies.
 """
 
 from __future__ import annotations
@@ -129,6 +134,7 @@ class Peer:
             with trace.span("worker.start.server"):
                 self.server.start()
         self._start_telemetry_server()
+        self._start_flight_recorder()
         with trace.span("worker.start.update"):
             self._update_to(self._peers)
 
@@ -154,6 +160,18 @@ class Peer:
                 # OverflowError: peer port within 10000 of 65535
                 log.warn("telemetry server failed to start: %s", e)
 
+    def _start_flight_recorder(self) -> None:
+        """Durable flight recorder: journal telemetry snapshots to disk so
+        a SIGKILLed or OOM-killed worker leaves a black box. kfrun injects
+        KF_TELEMETRY_DIR, which turns it on; in-process peers
+        (`single_process`) stay off."""
+        self.flight_recorder = None
+        if self.config.single_process:
+            return
+        from kungfu_tpu_torch.telemetry import flight
+
+        self.flight_recorder = flight.start_recorder(peer=str(self.self_id))
+
     def stop(self) -> None:
         with self._session_lock:
             if self._session is not None:
@@ -164,6 +182,11 @@ class Peer:
             # close the listening socket too, not only the serve loop
             self.metrics_server.stop()
             self.metrics_server = None
+        if getattr(self, "flight_recorder", None) is not None:
+            from kungfu_tpu_torch.telemetry import flight
+
+            flight.stop_recorder(reason="peer_stop")
+            self.flight_recorder = None
 
     @property
     def rank(self) -> int:
@@ -189,6 +212,9 @@ class Peer:
                 old_session.close(timeout=10.0)
             if peers.rank(self.self_id) is None:
                 self.detached = True
+                # the election would clear the role anyway, but it must
+                # happen on this early exit too
+                self._update_host_role(peers)
                 return False
             self.server.set_token(self.cluster_version)
             self.client.set_token(self.cluster_version)
@@ -221,6 +247,9 @@ class Peer:
             # stay: stable control-plane membership)
             if tlink.enabled():
                 tlink.get_table().prune(list(peers) + list(self.config.runners))
+            # host sub-aggregator election: every membership change
+            # re-elects deterministically on every peer
+            self._update_host_role(peers)
         if not self.config.single_process:
             # fail fast BEFORE the barrier: the barrier itself walks
             # strategy-dependent graphs, so knob-divergent peers would hang
@@ -229,6 +258,19 @@ class Peer:
                 self._session.check_knob_consensus()
             self._session.barrier(tag=f":v{self.cluster_version}")
         return True
+
+    def _update_host_role(self, peers: PeerList) -> None:
+        """Recompute this worker's host sub-aggregator role. A failure
+        only warns: the role is an optimization the runner's aggregator
+        falls back from, and must never touch the resize path."""
+        if self.config.single_process or getattr(self, "metrics_server", None) is None:
+            return  # no telemetry server, nothing to elect for
+        try:
+            from kungfu_tpu_torch.telemetry import cluster as _cluster
+
+            _cluster.update_host_role(self.self_id, list(peers))
+        except Exception as e:  # noqa: BLE001 - telemetry must not break resizes
+            log.warn("host telemetry role update failed: %s", e)
 
     def set_tree(self, fathers) -> None:
         """Install a runtime collective tree on the CURRENT session epoch

@@ -18,8 +18,15 @@ gain is computed from), and pulls the measured signals back into
   worker's own outgoing row);
 - the walk profiler: ``collective/efficiency`` +
   ``collective/wait_frac``;
+- the step plane: ``step/overlap_frac`` + ``step/queue_delay_frac``
+  (this worker's own recent timelines);
 - the decision ledger: ``decision/last_kind`` +
-  ``decision/last_realized_gain`` + ``decision/regressed``.
+  ``decision/last_realized_gain`` + ``decision/regressed``;
+- ``monitor.cluster_health()``: the runner aggregator's ``cluster/*``
+  signals (straggler flags, scores and causes, ``cluster/updated_at``)
+  plus its cluster-wide ``step/*`` election (``step/critical_peer``,
+  ``step/critical_edge``), which override the local step values on the
+  shared keys.
 
 :class:`ReplanPolicy` votes measured-topology re-plans and demotions
 through the session's lockstep rounds, :class:`PrecisionPolicy` votes
@@ -27,12 +34,11 @@ the wire precision, :class:`StragglerPolicy` acts on the cluster's
 straggler flags.
 
 Not ported yet, so their keys stay absent (the reference's eviction
-list still clears them): the step plane (``step/*``, from
-``telemetry/steptrace.py``) and ``monitor.cluster_health``'s cluster
-signals (``cluster/*``), ROADMAP item 1e-iii; the resource and memory
-planes (``resource/*``, ``memory/*``), item 1e-iv. The reference reads
-every plane inside one ``try``; the port reads only the planes it has,
-so a missing one can never take the link signals down with it.
+list still clears them): the resource and memory planes
+(``resource/*``, ``memory/*``), ROADMAP item 1e-iv. The reference reads
+every worker-local plane inside one ``try``; the port reads each plane
+on its own, so one that fails can never take the link signals down
+with it.
 """
 
 from __future__ import annotations
@@ -130,28 +136,35 @@ class PolicyRunner:
     )
 
     def _pull_cluster_signals(self) -> None:
-        """Merge the link-table, walk-profiler and decision-ledger
-        signals into ctx.metrics (throttled). The previous refresh's
+        """Merge the link-table, walk-profiler, step-plane and
+        decision-ledger signals, then the cluster's, into ctx.metrics
+        (throttled). The previous refresh's
         values are evicted FIRST: a source that went quiet (e.g. the only
         estimated peer departed and was pruned) returns {} and must take
         its stale signals with it — a frozen links/min_bw steering
         re-planning hours later is the staleness LinkTable.prune exists
         to prevent. Each plane is read on its own, so one that fails
-        never drops the others."""
+        never drops the others. The cluster's health signals come last:
+        its cluster-wide values override the worker-local ones on the
+        shared ``step/*`` keys."""
         now = time.monotonic()
         if now - self._signals_at < self.CLUSTER_SIGNAL_PERIOD:
             return
         self._signals_at = now
         for key in self.SIGNAL_KEYS:
             self.ctx.metrics.pop(key, None)
+        from kungfu_tpu_torch import monitor
         from kungfu_tpu_torch.collective.profiler import get_walk_profiler
         from kungfu_tpu_torch.telemetry import decisions as _tdec
         from kungfu_tpu_torch.telemetry import link as _link
+        from kungfu_tpu_torch.telemetry import steptrace as _steptrace
 
         for name, read in (
                 ("link table", lambda: _link.get_table().signals() if _link.enabled() else {}),
                 ("walk profiler", lambda: get_walk_profiler().signals()),
-                ("decision ledger", lambda: _tdec.get_ledger().signals())):
+                ("step plane", lambda: _steptrace.get_store().local_signals()),
+                ("decision ledger", lambda: _tdec.get_ledger().signals()),
+                ("cluster health", lambda: monitor.cluster_health())):
             try:
                 self.ctx.metrics.update(read())
             except Exception as e:  # noqa: BLE001 - telemetry must never kill training

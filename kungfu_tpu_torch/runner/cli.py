@@ -13,14 +13,17 @@ of the reference:
 
 The workers get the reference's environment contract (`runner/env.py`),
 so this runner starts either package's workers and the reference's
-starts the port's. Not ported yet: the flight-recorder run dir
-(`KF_TELEMETRY_DIR`) and `-debug-port`'s `/cluster/*` telemetry routes
-(ROADMAP item 1e-iii).
+starts the port's. Each run mints one flight-recorder run dir
+(`KF_TELEMETRY_DIR`, unless the operator set one) that every worker
+inherits: the workers' journals and the runner's postmortems land under
+it. In watch mode `-debug-port` serves the Stage dump and the cluster
+aggregator's `/cluster/*` views.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import signal
 import socket
@@ -200,6 +203,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"kfrun: {e}", file=sys.stderr)
         return 2
 
+    # flight-recorder run dir: minted once per run and inherited by every
+    # worker through the environment, so all the peer journals and the
+    # runner's postmortems land under one directory. An operator-set
+    # KF_TELEMETRY_DIR wins; the default base is pruned so unattended
+    # loops do not grow it forever.
+    from kungfu_tpu_torch import knobs
+    from kungfu_tpu_torch.telemetry import flight
+
+    if not knobs.raw(flight.DIR_ENV):
+        flight.prune_runs()
+        os.environ[flight.DIR_ENV] = flight.default_run_dir()
+
     config_server_url = args.config_server
     builtin_server = None
     if args.builtin_config_port >= 0:
@@ -213,8 +228,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         time.sleep(args.delay)
 
     if args.debug_port >= 0 and not args.watch:
-        print("kfrun: -debug-port (Stage dumps) needs watch mode (-w); ignoring",
-              file=sys.stderr)
+        print("kfrun: -debug-port (Stage dumps + /cluster telemetry) needs watch "
+              "mode (-w); ignoring", file=sys.stderr)
 
     try:
         if args.auto_recover and not args.watch:

@@ -11,12 +11,16 @@ where one is ready, from a cold spawn otherwise; card slots come from one
 pool across resizes; `-auto-recover` composes the heartbeat monitor in.
 
 A run the watcher gives up on leaves a `run_abort` audit record (too
-many failure recoveries, or no survivors). Not ported yet (ROADMAP item
-1e-iii): the telemetry aggregator behind `-debug-port`'s `/cluster/*`
-routes and the flight-recorder postmortems of dead workers (the watcher
-logs their exit codes and output tails instead). Unlike the reference's
-watcher, this one honours `-timeout`: past it, every worker is killed
-and kfrun exits 1.
+many failure recoveries, or no survivors). Each worker that dies is
+harvested into a postmortem (`telemetry/flight.py`: its journal, its
+`faulthandler.log`, its output tail): a `worker_postmortem` audit
+record, a line of `<run dir>/postmortems.jsonl` and an entry of
+`/cluster/postmortem`, once per death, beside the log line with its exit
+code and output tail. With `-debug-port` the watcher runs the cluster
+aggregator (`telemetry/cluster.py`): it follows every Stage, serves the
+`/cluster/*` views, and every spawned worker gets its `/cluster/health`
+as `KF_CLUSTER_HEALTH_URL`. Unlike the reference's watcher, this one
+honours `-timeout`: past it, every worker is killed and kfrun exits 1.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import collections
 import json
 import queue
+import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
@@ -71,19 +76,69 @@ class Stage:
 
 class DebugServer:
     """HTTP endpoint on the runner: the Stage and worker dump (parity:
-    -debug-port, runner/handler.go:118-124) on every path."""
+    -debug-port, runner/handler.go:118-124) plus the cluster
+    observability plane when the watcher carries a TelemetryAggregator:
+
+    - ``/cluster/metrics`` federated Prometheus exposition (peer labels)
+    - ``/cluster/trace``   cross-peer merged Chrome trace
+    - ``/cluster/audit``   merged audit timeline
+    - ``/cluster/postmortem`` every harvested worker death
+    - ``/cluster/health``  per-peer step rate / straggler JSON
+    - ``/cluster/links``   k×k link matrix (per-edge bandwidth/latency)
+    - ``/cluster/steps``   merged per-step critical-path records
+    - ``/cluster/decisions`` merged adaptation-decision ledger
+    - anything else        the Stage/worker debug dump
+
+    The dispatch is built from the aggregator's ``CLUSTER_ROUTES``, so a
+    view added there cannot miss this server. An unknown ``/cluster/*``
+    path with a live aggregator is a 404; a view that raises is a 500."""
 
     def __init__(self, watcher: "Watcher", port: int):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import urlsplit
+
+        from kungfu_tpu_torch.telemetry.cluster import CLUSTER_ROUTES
+
+        # /cluster/metrics is the text/plain exception; trace and audit
+        # serve compact JSON (multi-MB documents an indent would double)
+        renderers = {
+            "/cluster/metrics": lambda agg: (agg.cluster_metrics(), "text/plain; version=0.0.4"),
+            "/cluster/trace": lambda agg: (json.dumps(agg.cluster_trace()), "application/json"),
+            "/cluster/audit": lambda agg: (json.dumps(agg.cluster_audit()), "application/json"),
+        }
+        for route in CLUSTER_ROUTES:
+            if route not in renderers:
+                method = "cluster_" + route.rsplit("/", 1)[1]
+                renderers[route] = lambda agg, m=method: (
+                    json.dumps(getattr(agg, m)(), indent=2), "application/json")
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *a):
                 pass
 
             def do_GET(inner):
-                body = json.dumps(watcher.debug_dump(), indent=2).encode()
+                # a query (a dashboard's cache-buster) never selects the view
+                path = urlsplit(inner.path).path.rstrip("/")
+                agg = watcher.aggregator
+                try:
+                    if path.startswith("/cluster") and agg is not None:
+                        render = renderers.get(path)
+                        if render is None:
+                            # a typo deserves a 404, not the wrong document
+                            inner.send_response(404)
+                            inner.end_headers()
+                            return
+                        body_s, ctype = render(agg)
+                    else:
+                        body_s, ctype = json.dumps(watcher.debug_dump(), indent=2), "application/json"
+                except Exception as e:  # noqa: BLE001 - a broken view is a 500, not a crash
+                    inner.send_response(500)
+                    inner.end_headers()
+                    inner.wfile.write(str(e).encode())
+                    return
+                body = body_s.encode()
                 inner.send_response(200)
-                inner.send_header("Content-Type", "application/json")
+                inner.send_header("Content-Type", ctype)
                 inner.send_header("Content-Length", str(len(body)))
                 inner.end_headers()
                 inner.wfile.write(body)
@@ -158,7 +213,23 @@ class Watcher:
         self.auto_recover = bool(getattr(args, "auto_recover", ""))
         self.failure_restarts = 0
         self.last_stage: Optional[Stage] = None
-        self._reported: set = set()  # (peer, pid) of dead workers logged
+        # flight-recorder plane: the run dir every worker journals under
+        # (kfrun minted it into the environment); dead workers'
+        # postmortems are harvested from it. Keyed (peer, pid): a
+        # respawned-then-dead-again peer gets a fresh postmortem, but one
+        # death is never counted twice.
+        from kungfu_tpu_torch import knobs
+
+        self.telemetry_dir = knobs.raw("KF_TELEMETRY_DIR")
+        self._postmortemed: set = set()
+        # cluster observability plane: rides the -debug-port endpoint
+        self.aggregator = None
+        self.cluster_health_url = ""
+        if getattr(args, "debug_port", -1) >= 0:
+            from kungfu_tpu_torch.telemetry.cluster import TelemetryAggregator, set_aggregator
+
+            self.aggregator = TelemetryAggregator()
+            set_aggregator(self.aggregator)
         self.hb_state = None
         self.monitor = None
         self.grace = 0.0
@@ -251,6 +322,12 @@ class Watcher:
             from kungfu_tpu_torch.runner.monitored import MONITOR_ADDR_ENV
 
             p.env[MONITOR_ADDR_ENV] = f"{self.self_host}:{self.monitor.port}"
+        if self.cluster_health_url:
+            # workers poll it for the signals that feed
+            # PolicyContext.metrics (monitor.cluster_health)
+            from kungfu_tpu_torch.telemetry.cluster import HEALTH_URL_ENV
+
+            p.env[HEALTH_URL_ENV] = self.cluster_health_url
         # standbys serve post-initial joins only (at t0 a cold spawn is
         # concurrent with everything else anyway, and the just-spawned
         # standbys may not have opened their FIFOs yet)
@@ -300,8 +377,15 @@ class Watcher:
         if self.hb_state is not None:
             self.hb_state.reset(stage.progress)
 
+    def _update_aggregator(self, stage: Stage) -> None:
+        """Point the scrape set at the new membership (the aggregator
+        learns the cluster from Stages, never from a static list)."""
+        if self.aggregator is not None:
+            self.aggregator.set_peers(self.aggregator.targets_for_workers(stage.cluster.workers))
+
     def apply_delta(self, stage: Stage) -> None:
         self.last_stage = stage
+        self._update_aggregator(stage)
         self._reset_heartbeats(stage)
         new_local = {w for w in stage.cluster.workers if w.host == self.self_host}
         with self._state_lock:
@@ -317,6 +401,7 @@ class Watcher:
     def apply_full(self, stage: Stage) -> None:
         """Reload mode: stop everything, restart from stage.progress."""
         self.last_stage = stage
+        self._update_aggregator(stage)
         self._reset_heartbeats(stage)
         with self._state_lock:
             doomed = list(self.current.items())
@@ -328,20 +413,62 @@ class Watcher:
             if w.host == self.self_host:
                 self._spawn(w, stage)
 
-    def report_dead(self, dead: List[PeerID]) -> None:
-        """Log each dead worker's exit code and the tail of its output,
-        once per process."""
+    def record_postmortems(self, dead: List[PeerID]) -> List[dict]:
+        """Crash forensics for workers that died with a nonzero exit:
+        harvest each one's flight journal, faulthandler file and output
+        tail into a `worker_postmortem` audit event, a line of the durable
+        <run dir>/postmortems.jsonl and an entry of the aggregator's
+        /cluster/postmortem, and log its exit code and output tail. Once
+        per death; best-effort by contract — a worker that left nothing
+        behind still yields the runner-side facts."""
+        from kungfu_tpu_torch.telemetry import flight
+
+        out: List[dict] = []
         for w in dead:
             with self._state_lock:
                 proc = self.current.get(w)
-            if proc is None or proc.proc is None:
+            if proc is not None and proc.proc is not None:
+                # reap a just-killed child so the postmortem records
+                # -SIGKILL, not a stale None
+                try:
+                    proc.proc.wait(timeout=1.0)
+                except (subprocess.TimeoutExpired, OSError):
+                    proc.proc.poll()  # still running, or reaped elsewhere
+            code = proc.proc.returncode if proc is not None and proc.proc else None
+            key = (str(w), proc.proc.pid if proc is not None and proc.proc else None)
+            if key in self._postmortemed:
                 continue
-            key = (str(w), proc.proc.pid)
-            if key in self._reported:
-                continue
-            self._reported.add(key)
+            self._postmortemed.add(key)
+            tail = proc.output_tail() if proc is not None else []
             log.warn("kfrun: worker %s died with exit code %s; its last output:\n%s",
-                     w, proc.proc.returncode, "\n".join(proc.output_tail()[-TAIL_LINES:]))
+                     w, code, "\n".join(tail[-TAIL_LINES:]))
+            try:
+                # an empty telemetry_dir (no KF_TELEMETRY_DIR plumbed, e.g.
+                # an embedded Watcher) yields the runner-side facts only
+                pm = flight.harvest_postmortem(self.telemetry_dir, str(w), exit_code=code,
+                                               output_tail=tail)
+            except Exception as e:  # noqa: BLE001 - forensics must never block recovery
+                log.warn("kfrun: postmortem harvest for %s failed: %s", w, e)
+                continue
+            audit.record_event(
+                "worker_postmortem",
+                peer=str(w),
+                trigger="worker_death",
+                death=pm["death"],
+                exit_code=code,
+                last_step=pm.get("last_step"),
+                last_record_age_s=pm.get("last_record_age_s"),
+                clean_exit=pm.get("clean_exit"),
+                journal_records=pm.get("journal_records"),
+            )
+            if self.telemetry_dir:
+                flight.append_postmortem(self.telemetry_dir, pm)
+            if self.aggregator is not None:
+                self.aggregator.add_postmortem(str(w), pm)
+            log.warn("kfrun: worker_postmortem recorded for %s (%s, last step %s)",
+                     w, pm["death"], pm.get("last_step"))
+            out.append(pm)
+        return out
 
     def _dead_workers(self) -> List[PeerID]:
         """Local workers that died WITHOUT a Stage removing them: exit
@@ -374,7 +501,7 @@ class Watcher:
         to the config server so later elastic polls don't resize the
         corpses back in."""
         self.failure_restarts += 1
-        self.report_dead(dead)
+        self.record_postmortems(dead)
         codes = {
             str(w): (self.current[w].proc.returncode if w in self.current else "?")
             for w in dead
@@ -474,6 +601,13 @@ class Watcher:
             debug = DebugServer(self, self.args.debug_port)
             debug.start()
             log.info("kfrun: debug endpoint on :%d", debug.port)
+            if self.aggregator is not None:
+                self.cluster_health_url = (
+                    f"http://{self.self_host or '127.0.0.1'}:{debug.port}/cluster/health")
+                self._update_aggregator(initial)
+                self.aggregator.start()
+                log.info("kfrun: cluster telemetry: /cluster/* on :%d (scrape every %.1fs)",
+                         debug.port, self.aggregator.interval)
         timeout = getattr(self.args, "timeout", 0.0)
         deadline = time.monotonic() + timeout if timeout else None
         idle_since: Optional[float] = None
@@ -517,7 +651,9 @@ class Watcher:
                                 continue
                             self.exit_code = 0 if all(c == 0 for c in codes) else 1
                             if self.exit_code != 0:
-                                self.report_dead(self._dead_workers())
+                                # even without auto-recover, a crashed
+                                # worker leaves its black box behind
+                                self.record_postmortems(self._dead_workers())
                             break
                     else:
                         idle_since = None
@@ -542,6 +678,11 @@ class Watcher:
                 self.standby_pool.kill_all()
             if self.monitor is not None:
                 self.monitor.stop()
+            if self.aggregator is not None:
+                self.aggregator.stop()
+                from kungfu_tpu_torch.telemetry.cluster import set_aggregator
+
+                set_aggregator(None)
             server.stop()
             if debug is not None:
                 debug.stop()

@@ -8,9 +8,16 @@
   strategy audit log;
 - :mod:`~kungfu_tpu_torch.telemetry.log`: the rank-prefixed logger;
 - :mod:`~kungfu_tpu_torch.telemetry.http`: the per-worker ``/metrics``,
-  ``/trace`` and ``/audit`` endpoint;
-- :mod:`~kungfu_tpu_torch.telemetry.promparse`: exposition parsing and
-  federation (imported lazily).
+  ``/trace``, ``/audit``, ``/steptrace``, ``/decisions`` and
+  ``/host/telemetry`` endpoint;
+- imported lazily: :mod:`~kungfu_tpu_torch.telemetry.promparse`
+  (exposition parsing and federation),
+  :mod:`~kungfu_tpu_torch.telemetry.steptrace` (per-step timelines),
+  :mod:`~kungfu_tpu_torch.telemetry.decisions` (the decision ledger),
+  :mod:`~kungfu_tpu_torch.telemetry.flight` (the flight recorder and
+  postmortems), :mod:`~kungfu_tpu_torch.telemetry.straggler` and
+  :mod:`~kungfu_tpu_torch.telemetry.cluster` (the runner-side
+  aggregator).
 
 Feature selection: ``KF_TELEMETRY=metrics,trace,audit`` (see
 :mod:`~kungfu_tpu_torch.telemetry.config`). ``dump()`` snapshots
@@ -49,13 +56,22 @@ __all__ = [
     "get_registry",
     "dump",
     "serve",
+    "cluster",
     "promparse",
+    "straggler",
+    "flight",
+    "steptrace",
+    "decisions",
 ]
 
-_LAZY_MODULES = ("promparse",)
+_LAZY_MODULES = (
+    "cluster", "promparse", "straggler", "flight", "steptrace", "decisions",
+)
 
 
 def __getattr__(name):
+    # the cluster plane is runner-side machinery; workers importing
+    # telemetry on the transport's hot path must not pay for it
     if name in _LAZY_MODULES:
         import importlib
 

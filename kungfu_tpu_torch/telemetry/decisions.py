@@ -38,8 +38,10 @@ deque, and emits zero ``decision_outcome`` events — the ledger is
 silent by construction. ``KF_DECISION_KEEP=0`` disables it entirely
 (:func:`open_decision` returns None and allocates nothing).
 
-Not ported yet: the ledger's memory-plane accountant (ROADMAP item
-1e-iv) and the flight recorder's journal of it (1e-iii).
+The flight recorder journals the ledger's tail (:meth:`DecisionLedger.tail`,
+the last 8 records) in every snapshot, so a postmortem names the
+adaptation a worker was mid-flip on when it died. Not ported yet: the
+ledger's memory-plane accountant (ROADMAP item 1e-iv).
 """
 
 from __future__ import annotations

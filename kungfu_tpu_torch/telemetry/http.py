@@ -1,4 +1,5 @@
-"""Per-worker telemetry HTTP endpoint: /metrics, /trace, /audit and /decisions.
+"""Per-worker telemetry HTTP endpoint: /metrics, /trace, /audit, /steptrace,
+/decisions and /host/telemetry.
 
 Port of `kungfu_tpu/telemetry/http.py` (parity: the reference peer's
 port+10000 monitoring server, srcs/go/monitor/server.go, extended to the
@@ -9,14 +10,19 @@ whole telemetry subsystem):
 - ``/trace``    Chrome-trace JSON of the span ring;
 - ``/audit``    the resize/strategy audit log as JSON; ``?since=<seq>``
   ships only records created or annotated past that cursor;
+- ``/steptrace`` the step plane's ring of per-step timelines
+  (:mod:`~kungfu_tpu_torch.telemetry.steptrace`); ``?since=<seq>`` ships
+  only timelines flushed past that cursor;
 - ``/decisions`` the decision ledger's document
   (:mod:`~kungfu_tpu_torch.telemetry.decisions`), with the same
-  ``?since=`` cursor over its records.
+  ``?since=`` cursor over its records;
+- ``/host/telemetry`` the host sub-aggregator's digest when this worker
+  is its host's elected head at scale, ``{"enabled": false}`` otherwise
+  (:func:`~kungfu_tpu_torch.telemetry.cluster.host_digest_doc`).
 
-The JAX package's ``/steptrace``, ``/resources``, ``/memory`` and
-``/host/telemetry`` views read planes the port does not have yet
-(ROADMAP items 1e-iii and 1e-iv), so they answer 404 here like any
-unknown path. A query string
+The JAX package's ``/resources`` and ``/memory`` views read the resource
+and memory planes, which the port does not have yet (ROADMAP item
+1e-iv), so they answer 404 here like any unknown path. A query string
 never selects the route; a view that raises is a 500. Every 200 carries
 this process's perf clock and wall clock as headers, for offline trace
 merges.
@@ -55,6 +61,22 @@ def _since(query: Dict[str, str]) -> Optional[int]:
         return int(raw)
     except ValueError:
         return None
+
+
+def _steptrace_doc(since: Optional[int] = None) -> dict:
+    # lazy: most processes serving /metrics never record a step, and the
+    # store's knobs resolve at first use, not at server construction
+    from kungfu_tpu_torch.telemetry import steptrace
+
+    return steptrace.get_store().export(since=since)
+
+
+def _host_doc() -> dict:
+    # lazy: only a worker elected host sub-aggregator serves a real
+    # digest; everyone else answers {"enabled": false}
+    from kungfu_tpu_torch.telemetry import cluster
+
+    return cluster.host_digest_doc()
 
 
 def _decisions_doc(since: Optional[int] = None) -> dict:
@@ -105,8 +127,11 @@ class TelemetryServer:
             "/trace": lambda: (tracing.chrome_trace_json(), "application/json"),
             "/audit": lambda q: (json.dumps(audit.to_json(since=_since(q))),
                                  "application/json"),
+            "/steptrace": lambda q: (json.dumps(_steptrace_doc(_since(q))),
+                                     "application/json"),
             "/decisions": lambda q: (json.dumps(_decisions_doc(_since(q))),
                                      "application/json"),
+            "/host/telemetry": lambda: (json.dumps(_host_doc()), "application/json"),
         }
         if extra_routes:
             routes.update(extra_routes)

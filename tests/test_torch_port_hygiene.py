@@ -48,7 +48,10 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "telemetry.http", "monitor.net", "monitor.latency",
                       # measured topology
                       "transport.shaping", "telemetry.link", "telemetry.decisions",
-                      "policy")
+                      "policy",
+                      # run-level forensics
+                      "telemetry.straggler", "telemetry.steptrace", "telemetry.flight",
+                      "telemetry.cluster", "monitor")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys

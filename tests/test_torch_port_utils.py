@@ -113,8 +113,14 @@ def test_registry_and_doc():
         "KF_TELEMETRY_DIR", "KF_DECISION_KEEP", "KF_DECISION_WINDOW", "KF_DECISION_SETTLE",
         "KF_DECISION_REGRESS_RATIO", "KF_DECISION_PATIENCE", "KF_AGG_LINK_MAX_AGE_S",
         "KF_LINK_BW_MIN_BYTES", "KF_LINK_EWMA_ALPHA", "KF_LINK_MAX_PEERS", "KF_SHAPE_LINKS",
-        "KF_TEST_SLOW_EDGE"}
-    assert len(knobs.names()) == 56
+        "KF_TEST_SLOW_EDGE",
+        # run-level forensics: the step plane, the flight recorder, the
+        # cluster aggregator
+        "KF_STEP_TIMELINE_KEEP", "KF_FLIGHT", "KF_FLIGHT_INTERVAL", "KF_FLIGHT_FSYNC",
+        "KF_FLIGHT_MAX_BYTES", "KF_CLUSTER_HEALTH_URL", "KF_CLUSTER_SCRAPE_INTERVAL",
+        "KF_AGG_DELTA", "KF_AGG_HIER_MIN_PEERS", "KF_AGG_LINK_ROTATION_SWEEPS",
+        "KF_AGG_LINK_TOP_EDGES", "KF_AGG_MAX_BACKOFF"}
+    assert len(knobs.names()) == 68
     doc = knobs.render_doc()
     theirs = set(_untagged(rknobs.render_doc()).splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
