@@ -32,7 +32,7 @@ Phases, each printing one JSON line:
            staged through pinned host buffers: the ring core's O, dQ, dK, dV
            at B=8, H=12, S=512 (causal and not) against the plain ring (the
            einsum oracle, on the card) on the same inputs, and against the
-           single-process kernel path; then BERT-base over a dp 1 x sp 2 mesh for 6
+           single-process kernel path; then BERT-base over a dp 1 x sp 2 mesh for 3
            S-SGD(AdamW) steps on one fixed causal-LM batch of 8 x 512, its
            first loss against the dense flash path in one process (within
            1e-4 relative), each
@@ -102,8 +102,8 @@ Phases, each printing one JSON line:
            bitwise equal to the in-process replay of the saved inputs;
   sma      BASELINE config 3: `examples/bert_sma.main` on 4 worker
            processes sharing card 0 (BERT-base, a fixed 8 x 512 masked-LM
-           batch a rank, 6 steps of AdamW and the SMA blend over the host
-           plane); gates: finite losses falling on every rank, 12 x 6
+           batch a rank, 4 steps of AdamW and the SMA blend over the host
+           plane); gates: finite losses falling on every rank, 12 x 4
            launches of each flash kernel a rank, step 0's sums equal across
            ranks and the embedding's equal to its in-process replay, each
            rank's blended parameters bitwise the blend formula on its saved
@@ -111,13 +111,13 @@ Phases, each printing one JSON line:
            local step's ms and the blend's split (copy out, walk, copy back
            and blend);
   async    4 worker processes, KF_CONFIG_ASYNC and KF_CONFIG_ZERO on:
-           ResNet-50 at 16 images a rank, 4 SGD steps by the frontend's
+           ResNet-50 at 16 images a rank, 3 SGD steps by the frontend's
            S-SGD through post-accumulate-grad hooks, by its step-end path,
            and by ZeroSGD, every tensor a bucket of its own; gates: the
            three bitwise equal after every step and across ranks, ZeRO's
            state at most a quarter of the parameters plus slack; step ms
            and the scheduler's stats, and the hooks at the default cap;
-  telemetry  4 workers: S-SGD with telemetry off and on in turns, then
+  telemetry  4 workers: S-SGD with telemetry off, then on, then
            ZeroSGD with it on; rank 0 scrapes every rank's /metrics, /trace
            and /audit between steps;
   replan   measured topology: 4 workers on card 0, ResNet-50 at 16 images
@@ -127,13 +127,13 @@ Phases, each printing one JSON line:
            picks the rate at which the bytes of edge rank 1 -> 2 take 4x
            the unshaped walk. (a) KF_SHAPE_LINKS shapes that edge and
            ReplanPolicy (every 4 steps, patience 2; reorder only, at a
-           predicted 2x) runs 16 steps in a PolicyRunner; (b) ZeRO-1 with
+           predicted 2x) runs 12 steps in a PolicyRunner; (b) ZeRO-1 with
            api.check_replan after step 2 (reordered and weighted), 6 steps,
            and (b2) the replicated update with the same plan adopted after
            the same step; (c) two virtual hosts {0, 1} and {2, 3} (1 ms and
            a cap on every cross-host edge, a shared uplink a host),
-           check_replan after step 2 adopts a two-level plan, rank 3 is
-           demoted after step 4 and promoted after step 6, 8 steps. Gates:
+           check_replan after step 1 adopts a two-level plan, rank 3 is
+           demoted after step 3 and promoted after step 5, 5 steps. Gates:
            parameters bitwise equal across ranks after every step; one
            adoption in (a), with one digest, routing around 1 -> 2, graded
            `delivered` on every rank's /decisions, one audit event, the
@@ -149,8 +149,10 @@ Phases, each printing one JSON line:
            first adoption bitwise equal to its replay through the plain
            twins (ring_replay with the plan's order and weights,
            hier_replay). Prints the matrices, predicted against realized
-           gains, step and walk ms before and after, the rounds' ms (vote,
-           matrix, digest and listeners), heads' and members' wire bytes;
+           gains beside the compute fraction each round shared (the clamp
+           1/cf on a predicted gain), step and walk ms before and after,
+           the rounds' ms (vote, matrix, digest and listeners), heads' and
+           members' wire bytes;
   forensics  run-level forensics: 4 workers of this script
            (`--forensics-worker`) on card 0 under the port's kfrun `-w
            -auto-recover 30s -builtin-config-port 0 -debug-port`, ResNet-50
@@ -169,23 +171,34 @@ Phases, each printing one JSON line:
            (p50 <= p99) and names the edge; every rank's PolicyRunner
            reads it from advancing refreshes; /cluster/metrics holds each
            rank's ring bytes under peer=, exactly the formula; parameters
-           bitwise equal after every step. (b) rank 0 takes a SIGUSR2
+           bitwise equal after every step. The resource and memory planes,
+           read by rank 0 at the end of (a): /cluster/resources and
+           /cluster/memory list the 4 peers (every route a 200); each rank
+           attributes CPU seconds to main and to the kf-sched-* threads,
+           its steptrace, link_table, decisions and scheduler accountants
+           held bytes in (a) (the aggregator's in rank 0's one-shot
+           aggregator), 0 < RSS < effective_mem_limit(), grow_ok() true, no
+           leak verdict (each rank's RSS after every step printed). (b) rank 0 takes a SIGUSR2
            (a dump record), rank 3 SIGKILLs itself, kfrun is stopped by
            SIGTERM; gates: one postmortem naming SIGKILL, its last step,
-           rank 3's last line, the step ring and the ledger's tail, on
-           /cluster/postmortem, in postmortems.jsonl and as the runner's
-           one worker_postmortem; the survivors' journals whole, ending in
-           their SIGTERM flush. Prints step ms, each view's scrape ms and
-           bytes, the aggregator's sweep s, journal bytes and snapshots,
-           and the kill -> postmortem ms split into detection and harvest;
+           rank 3's last line, the step ring and the ledger's tail, its
+           last snapshot's resource and memory documents and no leak
+           suspect in them, oom_suspected false over the last 8 memory
+           samples (KF_MEMORY_TREND=8), on /cluster/postmortem, in postmortems.jsonl and as the
+           runner's one worker_postmortem; the survivors' journals whole,
+           ending in their SIGTERM flush. Prints step ms, each view's
+           scrape ms and bytes, the aggregator's sweep s, journal bytes and
+           snapshots, the kill -> postmortem ms split into detection and
+           harvest, and per rank the compute fraction, engine share, RSS
+           and bytes by accountant;
   elastic  BASELINE config 5's resize path: the port's kfrun
            (`python -m kungfu_tpu_torch.runner.cli -w`, a built-in config
            server, one warm standby) starts 2 workers of this script
            (`--elastic-worker`) on card 0: ResNet-50 at 16 images a rank of
            a seeded synthetic set, S-SGD with momentum over the host plane
-           under ElasticState, sizes from StepBasedSchedule("2:3,4:3,2:3")
+           under ElasticState, sizes from StepBasedSchedule("2:2,4:2,2:2")
            on rank 0 (results in `build/chip_smoke_elastic/`); gates: kfrun
-           exits 0, sizes [2,2,2,4,4,4,2,2,2], every rank's parameters,
+           exits 0, sizes [2,2,4,4,2,2], every rank's parameters,
            running statistics and momentum equal after every step, each
            joiner's state after the grow's sync equal to the survivors',
            the shed workers detached and the survivors finished, each
@@ -198,8 +211,8 @@ Phases, each printing one JSON line:
            state (parameters, BN statistics, momentum, int64 step) on card 0
            saved by the port's Checkpointer at steps 1-3 (window 2) and
            restored under KF_RECOVER_EPOCH=2; then 2 workers under the port's
-           kfrun -auto-recover train it at 16 images a rank for 6 steps, a
-           checkpoint every 2, rank 1 crashing once after the step-4
+           kfrun -auto-recover train it at 16 images a rank for 4 steps, a
+           checkpoint every 2, rank 1 crashing once after the step-2
            checkpoint (results in `build/chip_smoke_ckpt/`); gates: the
            restore bitwise the saved state on the card, the window and the
            cap, `dump_final_variables` byte-equal to `pack_leaves` in jax's
@@ -208,13 +221,13 @@ Phases, each printing one JSON line:
            time to recover split into the runner's relaunch, the workers'
            start, the restore and the first step;
   resize_bench  `python -m kungfu_tpu_torch.bench_resize` (its JSON line;
-           gate: at least 5 resizes), then `examples/adaptive_batch` under
+           gate: at least 5 resizes), then `examples/adaptive_batch` (40 steps) under
            the port's kfrun -w from 1 worker on 4 slots; gates: it grows, its
            sizes never fall nor pass 4, every worker prints done, the ranks'
            w bitwise equal;
   pair     BASELINE config 4's optimizer at full width: 4 workers on card
            0, ResNet-50 at 16 images a rank on fixed batches, PairAveraging
-           over SGD(0.1, 0.9) for 6 steps; gates: finite falling losses, an
+           over SGD(0.1, 0.9) for 4 steps; gates: finite falling losses, an
            averaged step on every rank, each averaged step bitwise its replay
            (the f32 average with the fetched blob, then the base step);
            prints step ms, the join's exposed wait against the prefetch's
@@ -230,7 +243,9 @@ Phases, each printing one JSON line:
            the cross-world wire bytes beside the flat all-reduce's; then
            `examples/multislice_train` at world sizes 2 and 1 (each ends
            with its worlds' MIN/MAX check);
-  wall     the script's seconds before the checkpoint phase and after.
+  wall     the script's seconds before the checkpoint phase and after, and
+           `phases`: each phase's seconds (every phase line also carries
+           its own `seconds`).
 Then the line of kernels, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and the script exits non-zero before that last line.
 It also exits non-zero, printing no result, without a CUDA device or
@@ -248,10 +263,28 @@ import sys
 import time
 from pathlib import Path
 
+
+def _share_bytecode() -> None:
+    """Keep compiled bytecode under build/pycache, for this process and
+    every process it starts: where the interpreter may not write it beside
+    the sources (PYTHONDONTWRITEBYTECODE, a site-packages without
+    __pycache__), every process would compile torch from source again,
+    and the script starts dozens. multiprocessing's children inherit `-B`
+    from such an interpreter; they run this too, when they load the
+    script as `__mp_main__`, before they import torch."""
+    prefix = str(Path(__file__).resolve().parent / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
+if __name__ in ("__main__", "__mp_main__"):
+    _share_bytecode()
+
 B, H, S, HD = 8, 12, 512, 64
 S_RAGGED = 500
 STEPS = 8
-RING_STEPS = 6
+RING_STEPS = 3
 RING_RANKS = 2
 RING_DEADLINE_S = 300
 RING_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ring"
@@ -308,13 +341,55 @@ KERNELS = {
 }
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    """One phase line; a line that times nothing itself carries `seconds`
+    since the line before it."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", now - _LAST_EMIT[0])
+    _LAST_EMIT[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(f"chip_smoke check failed: {what}")
+
+
+def _deterministic() -> None:
+    """cuDNN's deterministic kernels and torch's deterministic-algorithms
+    flag, set as `torch.use_deterministic_algorithms(True)` sets it for
+    eager code. That call also imports `torch._inductor` to set inductor's
+    flag, a large import every worker would pay; the port runs no inductor
+    code."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch._C._set_deterministic_algorithms(True)
+
+
+_RESNET_SEED0: dict = {}
+
+
+def _resnet50_seed0(device):
+    """A new ResNet-50 module holding `init_resnet`'s seed-0 draw on
+    `device`; the draw is made once a process, later models copy it."""
+    import torch
+
+    from kungfu_tpu_torch.models import resnet as kf_resnet
+
+    state = _RESNET_SEED0.get(str(device))
+    if state is None:
+        model = kf_resnet.init_resnet(kf_resnet.resnet50(1000),
+                                      torch.Generator().manual_seed(0), device)
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        _RESNET_SEED0[str(device)] = state
+    model = kf_resnet.resnet50(1000).to(device, memory_format=torch.channels_last)
+    model.load_state_dict(state)
+    return model
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -927,7 +1002,7 @@ def _opt_rank(rank: int, peers) -> dict:
     import torch
 
     from kungfu_tpu_torch.initializer import broadcast_variables
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.monitor import monitor_gradient_noise_scale, monitor_gradient_variance
     from kungfu_tpu_torch.monitor.noise_scale import noise_scale
     from kungfu_tpu_torch.ops import collective
@@ -939,14 +1014,12 @@ def _opt_rank(rank: int, peers) -> dict:
     # deterministic kernels: two runs of one wrapper give the same bits, so
     # ZeRO against S-SGD measures the wrappers, not cuDNN's algorithms; an
     # op with no deterministic version raises
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     device = initialize_device_plane(backend="gloo")
     session = make_mesh(device)
     group = session.group
     model = broadcast_variables(
-        init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device), session)
+        _resnet50_seed0(device), session)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     params = list(model.parameters())
     gen = torch.Generator(device=device).manual_seed(100 + rank)
@@ -1676,7 +1749,7 @@ def hostplane_phase(smi: str) -> dict:
     from kungfu_tpu_torch.base.dtype import DType
     from kungfu_tpu_torch.base.strategy import DEFAULT_STRATEGY
     from kungfu_tpu_torch.collective.strategies import gen_global_strategies
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.ops import _build
     from kungfu_tpu_torch.plan.mst import minimum_spanning_tree
     from kungfu_tpu_torch.plan.peer import PeerID, PeerList
@@ -1691,7 +1764,7 @@ def hostplane_phase(smi: str) -> dict:
     device = torch.device("cuda", 0)
     k = HOST_PEERS
     torch.cuda.empty_cache()
-    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    model = _resnet50_seed0(device)
     params = list(model.parameters())
     gen = torch.Generator(device=device).manual_seed(300)
     grads = []
@@ -1887,18 +1960,16 @@ def _hostnet_rank(rank: int, specs) -> dict:
     from kungfu_tpu_torch.base.workspace import Workspace
     from kungfu_tpu_torch.collective.host_session import HostSession
     from kungfu_tpu_torch.collective.profiler import get_walk_profiler
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.peer import get_default_peer
     from kungfu_tpu_torch.transport.message import ConnType
     from kungfu_tpu_torch.utils.pool import BufferPool
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     k = peer.size
     device = resolve_device()
-    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    model = _resnet50_seed0(device)
     params = list(model.parameters())
     gen = torch.Generator(device=device).manual_seed(400 + rank)
     images = torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
@@ -2120,11 +2191,11 @@ def hostnet_phase(smi: str, replay: dict) -> dict:
 
 
 SMA_RANKS = 4
-SMA_STEPS = 6
+SMA_STEPS = 4
 SMA_DEADLINE_S = 600
 SMA_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_sma"
 ASYNC_RANKS = 4
-ASYNC_STEPS = 4
+ASYNC_STEPS = 3
 ASYNC_LR = 0.1
 ASYNC_DEADLINE_S = 600
 ASYNC_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_async"
@@ -2294,12 +2365,10 @@ def _async_rank(rank: int, specs) -> dict:
     from kungfu_tpu_torch import resolve_device
     from kungfu_tpu_torch import torch as kf
     from kungfu_tpu_torch.collective.host_session import HostSession
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.peer import get_default_peer
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     device = resolve_device()
     gen = torch.Generator(device=device).manual_seed(500 + rank)
@@ -2328,7 +2397,7 @@ def _async_rank(rank: int, specs) -> dict:
         peer._update_to(peer.config.peers)
         sess = peer.current_session()
         # a model of its own (an earlier run's hooks stay on its parameters)
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = list(model.parameters())
         out["param_bytes"], out["tensors"] = sum(p.numel() * 4 for p in params), len(params)
         if run == "zero":
@@ -2431,8 +2500,7 @@ TM_FEATURES = "metrics,trace,audit"
 # run -> (the optimizer, telemetry on), in this order, each a cluster
 # epoch of its own: S-SGD off and on in turns (off, on, off, on) for the
 # overhead, then ZeroSGD with telemetry on
-TM_RUNS = (("off", "ssgd", False), ("on", "ssgd", True), ("off2", "ssgd", False),
-           ("on2", "ssgd", True), ("zero", "zero", True))
+TM_RUNS = (("off", "ssgd", False), ("on", "ssgd", True), ("zero", "zero", True))
 TM_WARM = 2  # steps of a run left out of its median: the step-end path, then registration
 TM_ENDPOINTS = ("/metrics", "/trace", "/audit")
 
@@ -2517,13 +2585,11 @@ def _telemetry_rank(rank: int, specs) -> dict:
 
     from kungfu_tpu_torch import api, resolve_device
     from kungfu_tpu_torch import torch as kf
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.peer import get_default_peer
     from kungfu_tpu_torch.telemetry import config as tconfig
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     device = resolve_device()
     gen = torch.Generator(device=device).manual_seed(700 + rank)
@@ -2543,7 +2609,7 @@ def _telemetry_rank(rank: int, specs) -> dict:
         peer.cluster_version += 1  # a fresh epoch: its session reads the telemetry gate
         peer._update_to(peer.config.peers)
         sess = peer.current_session()
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = list(model.parameters())
         if kind == "zero":
             opt = kf.ZeroSGDOptimizer(model, lr=ASYNC_LR, name=f"tm{run}")
@@ -2639,7 +2705,7 @@ def telemetry_phase(smi: str) -> None:
     for r in range(k):
         want = sum(_ring_bytes(n, k, r) for n in units)
         wire[r] = {"per_step_want": want}
-        for run in ("on", "on2"):
+        for run in [run for run in ssgd if run in observed]:
             got = [s[r]["wire_ring_raw"] for s in scrapes[run]]
             own = ranks[r]["runs"][run]["wire_ring_raw"]
             # step 0 takes the step-end path; later steps walk the scheduler's buckets
@@ -2682,7 +2748,7 @@ def telemetry_phase(smi: str) -> None:
     pooled = {on: max(med([x for run in ssgd if (run in observed) == on
                            for x in r["runs"][run]["step_ms"][TM_WARM:]]) for r in ranks)
               for on in (False, True)}
-    last = scrapes["on2"][-1]
+    last = scrapes[[run for run in ssgd if run in observed][-1]][-1]
     emit("telemetry", nvidia_smi=smi, ranks=k, images_per_rank=OPT_BATCH, steps=TM_STEPS,
          features=TM_FEATURES, order=runs,
          step_ms={run: [r["runs"][run]["step_ms"] for r in ranks] for run in runs},
@@ -2709,7 +2775,7 @@ RP_LR, RP_MOMENTUM = 0.1, 0.9
 RP_CALIB_STEPS = 3  # unshaped steps the shaped edge's rate is chosen from
 RP_SLOWDOWN = 4.0  # the rate makes the unshaped walk's bytes on the edge take this much longer
 RP_MIN_SLOWDOWN = 3.0  # gate: the shaped rank-order walk at least this much longer
-RP_A_STEPS, RP_A_INTERVAL, RP_A_PATIENCE = 16, 4, 2
+RP_A_STEPS, RP_A_INTERVAL, RP_A_PATIENCE = 12, 4, 2
 # leg (a) reorders only, and only for a predicted gain of 2x: the shaped
 # edge predicts ~RP_SLOWDOWN, while the estimates of unshaped loopback
 # edges differ by up to 1.5x between rounds, enough to re-pair the ring
@@ -2717,7 +2783,10 @@ RP_A_STEPS, RP_A_INTERVAL, RP_A_PATIENCE = 16, 4, 2
 RP_A_MODE, RP_A_MIN_GAIN = "ring", 2.0
 RP_B_MODE = "auto"  # leg (b) adopts once, by api.check_replan: reordered and weighted
 RP_B_STEPS, RP_B_FLIP = 6, 2  # leg (b) adopts after this step
-RP_C_STEPS, RP_C_FLIP, RP_C_DEMOTE, RP_C_PROMOTE = 8, 2, 4, 6  # leg (c)'s rounds, after these steps
+# leg (c)'s rounds, after these steps: the two-level plan after step 1, rank
+# RP_C_DEMOTED demoted after step 2 (steps 3-4 run without it), promoted back
+# after step 4 (step 5 walks the whole two-level plan again)
+RP_C_STEPS, RP_C_FLIP, RP_C_DEMOTE, RP_C_PROMOTE = 5, 1, 2, 4
 RP_C_DEMOTED = 3
 RP_C_LAT_MS = 1
 RP_C_CROSS_BW = 64 << 20  # bytes/s on every cross-host edge of leg (c)
@@ -2767,6 +2836,8 @@ class _RoundTap:
             self._part[name] = self._part.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             if name == "measured_matrix":
                 self.matrices.append(out.tolist())
+            elif name == "measured_compute_frac":
+                self._part["compute_frac"] = out
             elif name == "adopt_replan" and self.capture is None:
                 self._arm = True
             return out
@@ -2785,6 +2856,7 @@ class _RoundTap:
             self.rounds.append({"round": name, "ms": total, "adopted": out is not None,
                                 "matrix_ms": parts.get("measured_matrix", 0.0),
                                 "compute_frac_ms": parts.get("measured_compute_frac", 0.0),
+                                "compute_frac": parts.pop("compute_frac", None),
                                 "adopt_ms": parts.get("adopt_replan", 0.0),
                                 "vote_ms": total - sum(parts.values())})
             return out
@@ -2834,7 +2906,7 @@ def _rp_train(leg: str, rank: int, peer, batches, steps: int, after_step=None, p
 
     from kungfu_tpu_torch import resolve_device
     from kungfu_tpu_torch import torch as kf
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.plan import replan as rp
     from kungfu_tpu_torch.policy import PolicyRunner
     from kungfu_tpu_torch.telemetry import audit, promparse
@@ -2842,7 +2914,7 @@ def _rp_train(leg: str, rank: int, peer, batches, steps: int, after_step=None, p
     mark = max([r["seq"] for r in audit.to_json()], default=-1)
     sess = peer.current_session()
     tap = _RoundTap(sess)
-    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), resolve_device())
+    model = _resnet50_seed0(resolve_device())
     params = list(model.parameters())
     opt = kf.ZeroSGDOptimizer(model, lr=RP_LR, momentum=RP_MOMENTUM, name=f"rp{leg}")
     rec = {"digests": [], "step_ms": [], "walk_ms": [], "plan_digests": []}
@@ -2917,9 +2989,7 @@ def _replan_rank(rank: int, specs) -> dict:
     from kungfu_tpu_torch.policy import ReplanPolicy
     from kungfu_tpu_torch.transport import shaping
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     device = resolve_device()
     k = len(specs)
@@ -3174,6 +3244,8 @@ def replan_gates(smi: str, specs, t_phase: float) -> None:
                     for s in range(1, RP_C_STEPS + 1)]
     check(all(x["demoted"] == want_demoted for x in c),
           f"replan c: demoted ranks by step {c[0]['demoted']}, want {want_demoted}")
+    check(RP_C_PROMOTE < RP_C_STEPS and RP_C_PROMOTE - RP_C_DEMOTE == 2,
+          "replan c: the demotion must last two steps and a step must train after the promotion")
     for r, x in enumerate(c):
         kinds = [d["kind"] for d in x["decisions"]]
         check("peer_demoted" in kinds and "peer_promoted" in kinds,
@@ -3221,6 +3293,10 @@ def replan_gates(smi: str, specs, t_phase: float) -> None:
          plan_a=plan_a, plan_b=plan_b,
          matrix_a=a[0]["matrices"][0] if a[0]["matrices"] else None,
          decisions_a=decisions(a[0]["decisions"], "topology_replanned"),
+         # the cluster max of the peers' compute fractions each round shared:
+         # the clamp on its predicted gain (1 / cf)
+         compute_frac_rounds={leg: [rd.get("compute_frac") for rd in recs[0]["rounds"]]
+                              for leg, recs in legs.items() if leg != "calib"},
          decisions_c={kind: decisions(c[0]["decisions"], kind)
                       for kind in ("topology_replanned", "peer_demoted", "peer_promoted")},
          rounds={leg: [x["rounds"] for x in recs] for leg, recs in legs.items() if leg != "calib"},
@@ -3249,15 +3325,102 @@ FX_DEADLINE_S = 600  # kfrun -timeout
 FX_SIGNAL_WAIT_S = 40  # a worker's wait for its PolicyRunner to read the cluster's election
 FX_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_fx"
 FX_SCRAPE_INTERVAL = 1.0
+# the memory plane's RSS trend over its last 8 samples: 4 s at the 0.5 s
+# snapshots, a window the idle stretch before rank 3's kill covers. So the
+# postmortem's oom_suspected is held over those 8 samples only: the
+# default 64 span 32 s, most of leg (a)'s training, whose first step raises
+# RSS by ~300 MB (the new epoch's buffer pool) before it stays flat
 FX_KNOBS = dict(KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES="0",
                 KF_CONFIG_WIRE="off", KF_CONFIG_SHM="0", KF_CONFIG_ASYNC="off",
                 KF_TELEMETRY="metrics,trace,audit", KF_FLIGHT_INTERVAL="0.5",
-                KF_CLUSTER_SCRAPE_INTERVAL=str(FX_SCRAPE_INTERVAL))
+                KF_CLUSTER_SCRAPE_INTERVAL=str(FX_SCRAPE_INTERVAL), KF_MEMORY_TREND="8")
 FX_WIRE = ("RING_SEGMENTED", "off")  # (strategy, codec): the ring's f32 bytes
 # the training's collectives: the step-end path's group and the scheduler's
 # buckets (a barrier's or a consensus's walk counts under another label)
 FX_TRAIN_COLLECTIVES = ("group_all_reduce", "raw")
 FX_LAST_WORDS = "forensics rank 3: last words before SIGKILL"
+# the memory plane's accountants live in leg (a) on every rank (`scheduler:e<epoch>` the
+# async hook path's), and the aggregator's in rank 0's process, whose one-shot
+# aggregator reads the workers as `info resources` would
+FX_ACCOUNTANTS = ("steptrace", "link_table", "decisions", "scheduler")
+FX_SAMPLE_S = 0.2  # the accountants' sampler: their bytes are read this often in leg (a)
+FX_PLANE_VIEWS = ("/resources", "/memory", "/cluster/resources", "/cluster/memory")
+
+
+class _AccountantSampler:
+    """Reads every memory-plane accountant each FX_SAMPLE_S on a thread of
+    its own and keeps each one's most bytes: the scheduler's in-flight
+    payloads exist only inside a step."""
+
+    def __init__(self):
+        import threading
+
+        self.most = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="fx-acct-sampler", daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        from kungfu_tpu_torch.telemetry import memory as tmem
+
+        while not self._stop.wait(FX_SAMPLE_S):
+            for name, nbytes in tmem.tracked_bytes()[1].items():
+                self.most[name] = max(nbytes, self.most.get(name, 0))
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(5)
+        return dict(self.most)
+
+
+def _rss_bytes() -> int:
+    """This process's resident set, as the memory plane reads it."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _fx_planes(rank: int, specs, sampled: dict) -> dict:
+    """This rank's resource and memory planes at the end of leg (a): its
+    compute fraction (the re-plan's clamp), grow gate, memory-plane age and
+    leak verdicts, and its accountants' most bytes. Rank 0 also reads every
+    rank's /resources and /memory and the watcher's /cluster/resources and
+    /cluster/memory (each timed), then a one-shot aggregator's views of the
+    same workers, whose `aggregator` accountant lives in its process."""
+    from kungfu_tpu_torch.telemetry import audit, cluster
+    from kungfu_tpu_torch.telemetry import memory as tmem
+    from kungfu_tpu_torch.telemetry import resource as tres
+
+    rplane, mplane = tres.get_plane(), tmem.get_plane()
+    age = time.perf_counter() - mplane._born
+    out = {"compute_frac": rplane.compute_frac(), "cores": rplane.cores(),
+           "grow_ok": list(mplane.grow_ok()), "limit_bytes": tmem.effective_mem_limit(),
+           "memory_age_s": age, "memory_born_wall": time.time() - age,
+           "warmup_s": mplane.warmup, "accountants_most": sampled,
+           "leak_events": [{"wall_time": r["wall_time"], "detail": r["detail"]}
+                           for r in audit.to_json() if r["kind"] == "memory_leak_suspect"]}
+    if rank != 0:
+        return out
+    timing = {view: [] for view in FX_PLANE_VIEWS}
+    docs = {"/resources": {}, "/memory": {}}
+    for spec in specs:
+        base = f"http://127.0.0.1:{int(spec.rsplit(':', 1)[1]) + 10000}"
+        for path in ("/resources", "/memory"):
+            docs[path][spec] = json.loads(_fx_get(base + path, timing[path]))
+    url = os.environ["CHIP_SMOKE_FX_DEBUG"]
+    for path in ("/cluster/resources", "/cluster/memory"):
+        docs[path] = json.loads(_fx_get(url + path, timing[path]))
+    agg = cluster.TelemetryAggregator(interval=FX_SCRAPE_INTERVAL)
+    agg.set_peers([(spec, f"http://127.0.0.1:{int(spec.rsplit(':', 1)[1]) + 10000}")
+                   for spec in specs])
+    try:
+        own = {"resources": agg.cluster_resources(), "memory": agg.cluster_memory()}
+        own_acct = tmem.tracked_bytes()[1]
+    finally:
+        agg.stop()
+    out.update(views=docs, timing=timing, own_aggregator={
+        "peers": {key: sorted(doc["peers"]) for key, doc in own.items()},
+        "accountant_bytes": own_acct.get("aggregator", 0)})
+    return out
 
 
 def forensics_worker(out_dir: str) -> int:
@@ -3283,13 +3446,12 @@ def forensics_worker(out_dir: str) -> int:
 
     from kungfu_tpu_torch import resolve_device
     from kungfu_tpu_torch import torch as kf
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.peer import get_default_peer
     from kungfu_tpu_torch.policy import PolicyRunner
+    from kungfu_tpu_torch.telemetry import memory as tmem
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     sess = peer.current_session()
     rank = sess.rank
@@ -3308,11 +3470,11 @@ def forensics_worker(out_dir: str) -> int:
         ms (with `tap`) and, under a PolicyRunner, what its signals say of
         the cluster."""
         sess = peer.current_session()
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = list(model.parameters())
         opt = kf.SynchronousSGDOptimizer(torch.optim.SGD(params, lr=FX_LR), name=f"fx{leg}")
         r = {"epoch": sess.cluster_version, "step_ms": [], "digests": [], "wire": [],
-             "signals": [], "walk_ms": []}
+             "signals": [], "walk_ms": [], "rss": [], "tracked": []}
         for step in range(steps):
             n_walks = len(tap.walk_ms) if tap is not None else 0
             torch.cuda.synchronize()
@@ -3328,6 +3490,8 @@ def forensics_worker(out_dir: str) -> int:
                                  if key[0] in FX_TRAIN_COLLECTIVES and key[1:] == FX_WIRE))
             if tap is not None:
                 r["walk_ms"].append(sum(tap.walk_ms[n_walks:]))
+            r["rss"].append(_rss_bytes())
+            r["tracked"].append(sum(tmem.tracked_bytes()[0].values()))
             if runner is not None:
                 m = runner.ctx.metrics
                 r["signals"].append({key: m.get(key) for key in (
@@ -3348,8 +3512,10 @@ def forensics_worker(out_dir: str) -> int:
     peer.cluster_version += 1
     peer._update_to(peer.config.peers)
     runner = PolicyRunner([], batch_size=OPT_BATCH)
+    sampler = _AccountantSampler()
     with runner:
         a, sess = train("a", FX_STEPS, runner)
+        sampled = sampler.stop()
         sched = sess.scheduler()
         a["unit_elems"] = [b // 4 for _, b in sorted(sched._unit_bytes.items())]
         sess.barrier(":fx:a")
@@ -3369,6 +3535,7 @@ def forensics_worker(out_dir: str) -> int:
             "step/critical_peer", "step/critical_edge", "cluster/updated_at",
             "cluster/stragglers")}
         a["updated_at_seen"] = sorted(seen - {None})
+        a["planes"] = _fx_planes(rank, specs, sampled)
     rec["a"] = a
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
     sess.barrier(":fx:written")
@@ -3428,7 +3595,9 @@ def forensics_phase(smi: str) -> None:
     runner_port, debug_port = free_ports(2)
     specs = [f"127.0.0.1:{base + i}" for i in range(k)]
     env = {key: v for key, v in os.environ.items() if not key.startswith("KF_")}
-    env.update(FX_KNOBS, KF_TELEMETRY_DIR=str(run_dir), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    url = f"http://127.0.0.1:{debug_port}"
+    env.update(FX_KNOBS, KF_TELEMETRY_DIR=str(run_dir), CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               CHIP_SMOKE_FX_DEBUG=url)
     here = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "kungfu_tpu_torch.runner.cli", "-np", str(k), "-H",
            f"127.0.0.1:{k}", "-w", "-auto-recover", "30s", "-builtin-config-port", "0",
@@ -3436,7 +3605,6 @@ def forensics_phase(smi: str) -> None:
            "-runner-port", str(runner_port), "-monitor-port", "0", "-warm-spares", "0",
            "-timeout", str(FX_DEADLINE_S), sys.executable, "chip_smoke.py",
            "--forensics-worker", str(FX_OUT)]
-    url = f"http://127.0.0.1:{debug_port}"
     log_out, log_err = (FX_OUT / "kfrun.out").open("w"), (FX_OUT / "kfrun.err").open("w")
     p = subprocess.Popen(cmd, cwd=here, env=env, stdout=log_out, stderr=log_err)
     timing = {"/steptrace": [], "/cluster/steps": [], "/cluster/health": []}
@@ -3616,8 +3784,11 @@ def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, hea
           f"forensics: postmortems.jsonl {[x['peer'] for x in jsonl]}, runner audit "
           f"{runner_pms}")
     text = flight.render_postmortem(pm)
-    check("SIGKILL" in text and f"last step: {int(pm['last_step'])}" in text,
-          "forensics: the rendered postmortem names neither the signal nor the last step")
+    check("SIGKILL" in text and f"last step: {int(pm['last_step'])}" in text
+          and "final CPU attribution" in text and "final memory attribution" in text,
+          "forensics: the rendered postmortem names neither the signal nor the last step, "
+          "or lacks the planes' attribution")
+    planes = _fx_plane_gates(specs, ranks, pm)
     journals = {}
     for r, spec in enumerate(specs):
         recs, errors = flight.read_journal(flight.peer_dir(run_dir, spec))
@@ -3677,7 +3848,89 @@ def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, hea
                      "last_record_age_s": pm["last_record_age_s"],
                      "output_tail_lines": len(pm["output_tail"]),
                      "decisions": [d["kind"] for d in pm["last_decisions"]]},
-         seconds=time.perf_counter() - t_phase)
+         planes=planes, seconds=time.perf_counter() - t_phase)
+
+
+def _fx_plane_gates(specs, ranks, pm) -> dict:
+    """The resource and memory planes' gates of the forensics phase, from
+    what rank 0 read during leg (a), each rank's own record and rank 3's
+    postmortem; returns what the phase's line prints of them."""
+    import statistics
+
+    planes = [r["a"]["planes"] for r in ranks]
+    p0 = planes[0]
+    views, timing = p0["views"], p0["timing"]
+    for path in ("/cluster/resources", "/cluster/memory"):
+        doc = views[path]
+        check(doc["count"] == len(specs) and sorted(doc["peers"]) == sorted(specs),
+              f"forensics: {path} lists {sorted(doc['peers'])}, not the 4 workers")
+        check(all(row.get("supported") for row in doc["peers"].values()),
+              f"forensics: a peer of {path} is unsupported")
+    check(all(sorted(peers) == sorted(specs) for peers in p0["own_aggregator"]["peers"].values()),
+          f"forensics: rank 0's aggregator lists {p0['own_aggregator']['peers']}")
+    per_rank = []
+    for r, (spec, mine) in enumerate(zip(specs, planes)):
+        res, mem = views["/resources"][spec], views["/memory"][spec]
+        cpu = {b: res["buckets"][b]["cpu_s"] for b in res["buckets"]}
+        check(res["supported"] and cpu["train"] > 0 and cpu["walk_compute"] > 0
+              and cpu["codec"] + cpu["sched"] > 0,
+              f"forensics rank {r}: CPU seconds by bucket {cpu}: none in main or the "
+              "kf-sched-* threads")
+        check(mem["supported"] and 0 < mem["rss_bytes"] < mem["limit_bytes"]
+              and mem["limit_bytes"] == mine["limit_bytes"],
+              f"forensics rank {r}: rss {mem['rss_bytes']} B against the limit "
+              f"{mem['limit_bytes']} (effective_mem_limit {mine['limit_bytes']})")
+        most = mine["accountants_most"]
+        live = {name: max([v for key, v in most.items() if key.split(":")[0] == name],
+                          default=0) for name in FX_ACCOUNTANTS}
+        check(all(v > 0 for v in live.values()),
+              f"forensics rank {r}: accountants' most bytes in leg (a) {live}")
+        check(mine["grow_ok"][0], f"forensics rank {r}: grow_ok() is {mine['grow_ok']}")
+        # the watchdog arms after the warm-up; a verdict at any time fails
+        check(not mine["leak_events"] and not mem["leak_suspects"],
+              f"forensics rank {r}: a leak verdict in leg (a): {mine['leak_events']}, "
+              f"{mem['leak_suspects']}")
+        per_rank.append({
+            "compute_frac": mine["compute_frac"], "cores": mine["cores"],
+            "cpu_frac": res["cpu_frac"], "engine_frac": res["engine_frac"], "cpu_s": cpu,
+            "rss_bytes": mem["rss_bytes"], "limit_bytes": mem["limit_bytes"],
+            "headroom_frac": mem["headroom_frac"], "untracked_frac":
+                mem["buckets"]["untracked"]["frac"], "tracked_bytes": mem["accountants"],
+            "accountants_most": live, "leak_suspects": mem["leak_suspects"],
+            "memory_age_s": mine["memory_age_s"],
+            "leak_armed_s": max(0.0, mine["memory_age_s"] - mine["warmup_s"]),
+            "grow_ok": mine["grow_ok"],
+            # RSS and the accountants' sum after each step, calibration then leg (a)
+            "rss_mb_by_step": [round(x / 1e6, 1) for x in ranks[r]["calib"]["rss"]
+                               + ranks[r]["a"]["rss"]],
+            "tracked_mb_by_step": [round(x / 1e6, 1) for x in ranks[r]["calib"]["tracked"]
+                                   + ranks[r]["a"]["tracked"]]})
+    check(p0["own_aggregator"]["accountant_bytes"] > 0,
+          f"forensics: the aggregator's accountant reads "
+          f"{p0['own_aggregator']['accountant_bytes']} B")
+    check(pm["last_resources"] is not None and pm["last_memory"] is not None,
+          f"forensics: rank 3's postmortem: its last snapshot's planes "
+          f"{pm['last_resources'] is not None}, {pm['last_memory'] is not None}")
+    # KF_MEMORY_TREND=8 (FX_KNOBS): the verdict reads the RSS trend over the
+    # 8 samples (4 s) before the kill, not over leg (a)'s training
+    check(pm["oom_suspected"] is False,
+          f"forensics: rank 3's postmortem says oom_suspected over its last 8 memory samples "
+          f"(trend {pm['last_memory'].get('trend_bytes_per_s')} B/s)")
+    check(not pm["last_memory"]["leak_suspects"],
+          f"forensics: rank 3's last snapshot names leak suspects "
+          f"{pm['last_memory']['leak_suspects']}")
+    born3 = planes[3]["memory_born_wall"]
+    return {"ranks": per_rank, "aggregator_bytes": p0["own_aggregator"]["accountant_bytes"],
+            "scrape": {view: {"median_ms": statistics.median(x["ms"] for x in timing[view]),
+                              "median_bytes": statistics.median(x["bytes"]
+                                                                for x in timing[view]),
+                              "n": len(timing[view])} for view in FX_PLANE_VIEWS},
+            "postmortem": {"oom_suspected": pm["oom_suspected"], "trend_samples": 8,
+                           "leak_armed_s": max(0.0, pm["last_memory"]["wall_time_s"] - born3
+                                               - planes[3]["warmup_s"]),
+                           "rss_bytes": pm["last_memory"]["rss_bytes"],
+                           "trend_bytes_per_s": pm["last_memory"]["trend_bytes_per_s"],
+                           "cpu_frac": pm["last_resources"]["cpu_frac"]}}
 
 
 def _ring_bytes_total(units, k: int, rank: int) -> int:
@@ -3686,8 +3939,8 @@ def _ring_bytes_total(units, k: int, rank: int) -> int:
     return (FX_CALIB_STEPS + FX_STEPS) * sum(_ring_bytes(n, k, rank) for n in units)
 
 
-ELASTIC_SCHEDULE = "2:3,4:3,2:3"  # workers: steps
-ELASTIC_SIZES = [2, 2, 2, 4, 4, 4, 2, 2, 2]
+ELASTIC_SCHEDULE = "2:2,4:2,2:2"  # workers: steps
+ELASTIC_SIZES = [2, 2, 4, 4, 2, 2]
 ELASTIC_BATCH = 16  # images a rank a step, 224x224
 ELASTIC_SAMPLES = 64  # a small synthetic set the run cycles over (seed 0)
 ELASTIC_CLASSES = 10  # its labels, each with an image pattern of its own
@@ -3751,7 +4004,6 @@ def elastic_worker() -> int:
 
     from kungfu_tpu_torch import api, knobs, resolve_device
     from kungfu_tpu_torch.elastic import ElasticDataset, ElasticState, StepBasedSchedule
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
     from kungfu_tpu_torch.peer import finalize_default_peer
     from kungfu_tpu_torch.utils import trace
 
@@ -3768,7 +4020,7 @@ def elastic_worker() -> int:
         device = resolve_device()
         images, labels = _elastic_data()
         ds = ElasticDataset([images, labels], ELASTIC_BATCH, seed=1)
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = dict(model.named_parameters())
         buffers = dict(model.named_buffers())
         opt = torch.optim.SGD(list(params.values()), lr=ELASTIC_LR, momentum=ELASTIC_MOMENTUM)
@@ -3988,8 +4240,8 @@ def elastic_phase(smi: str) -> None:
 
 
 CKPT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
-CKPT_STEPS, CKPT_EVERY = 6, 2  # training steps of the recovery run; a checkpoint every 2
-CKPT_CRASH_EPOCH = 2  # rank 1 crashes once, after the checkpoint of step 4
+CKPT_STEPS, CKPT_EVERY = 4, 2  # training steps of the recovery run; a checkpoint every 2
+CKPT_CRASH_EPOCH = 1  # rank 1 crashes once, after the checkpoint of step 2
 CKPT_LR, CKPT_MOMENTUM = 0.05, 0.9
 CKPT_GRACE = "10s"  # kfrun -auto-recover: a rank stuck in a step this long restarts the world
 CKPT_DEADLINE_S = 300
@@ -4001,9 +4253,7 @@ def _resnet_state(device, seed: int):
     ElasticState syncs (204,686,262 B)."""
     import torch
 
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
-
-    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    model = _resnet50_seed0(device)
     params = {k: p.detach() for k, p in model.named_parameters()}
     gen = torch.Generator(device=device).manual_seed(seed)
     momentum = {k: torch.randn(p.shape, generator=gen, device=device) * 1e-3
@@ -4030,7 +4280,6 @@ def checkpoint_worker(ckdir: str, out_dir: str, crash: bool) -> int:
 
     from kungfu_tpu_torch import api, cmd, knobs, resolve_device
     from kungfu_tpu_torch.elastic.checkpoint import Checkpointer
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50
     from kungfu_tpu_torch.peer import finalize_default_peer
 
     restart = "--restart" in sys.argv
@@ -4039,15 +4288,13 @@ def checkpoint_worker(ckdir: str, out_dir: str, crash: bool) -> int:
     out = {"rank": rank, "restart": restart, "t_spawn": float(knobs.raw("KF_SPAWN_TS") or 0),
            "t_start": t_start, "t_ready": t_ready, "losses": [], "step_ms": []}
     try:
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
-        torch.use_deterministic_algorithms(True)
+        _deterministic()
         device = resolve_device()
         torch.zeros(1, device=device).sum().item()  # the CUDA context
         out["t_context"] = time.time()
         images, labels = _elastic_data()
         out["t_data"] = time.time()
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = dict(model.named_parameters())
         buffers = dict(model.named_buffers())
         opt = torch.optim.SGD(list(params.values()), lr=CKPT_LR, momentum=CKPT_MOMENTUM)
@@ -4150,7 +4397,7 @@ def checkpoint_phase(smi: str) -> None:
     """Config 5's recovery path. In process: ResNet-50's training state on
     card 0 saved at steps 1-3 (window 2), restored under KF_RECOVER_EPOCH=2;
     then two workers under the port's kfrun -auto-recover, rank 1 crashing
-    after the step-4 checkpoint, against an uninterrupted run."""
+    after the step-2 checkpoint, against an uninterrupted run."""
     import shutil
 
     import torch
@@ -4259,6 +4506,7 @@ def checkpoint_phase(smi: str) -> None:
 
 ADAPTIVE_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_adaptive"
 ADAPTIVE_MAX_WORKERS = 4
+ADAPTIVE_STEPS = 40  # rank 0 may propose a grow every 10 steps: 1 -> 4 by step 30
 ADAPTIVE_DEADLINE_S = 300
 RESIZE_MIN = 5  # resizes bench_resize must time
 
@@ -4274,7 +4522,8 @@ def adaptive_worker() -> int:
 
     spec = knobs.raw("KF_SELF_SPEC")
     try:
-        out = adaptive_batch.main(["--max-workers", str(ADAPTIVE_MAX_WORKERS)])
+        out = adaptive_batch.main(["--max-workers", str(ADAPTIVE_MAX_WORKERS),
+                                   "--steps", str(ADAPTIVE_STEPS)])
         w = out.pop("w")
         out["w_digest"] = hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()
         out["spec"] = spec
@@ -4336,7 +4585,7 @@ def resize_bench_phase(smi: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
-PAIR_RANKS, PAIR_STEPS = 4, 6
+PAIR_RANKS, PAIR_STEPS = 4, 4
 PAIR_LR, PAIR_MOMENTUM = 0.1, 0.9
 PAIR_DEADLINE_S = 400
 PAIR_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_pair"
@@ -4352,13 +4601,13 @@ def _pair_rank(rank: int, specs) -> dict:
     from kungfu_tpu_torch import resolve_device
     from kungfu_tpu_torch.base.serialize import unpack_leaves
     from kungfu_tpu_torch.elastic.state import tree_flatten
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.optimizers.pair_averaging import PairAveraging
     from kungfu_tpu_torch.peer import get_default_peer
 
     peer = get_default_peer()
     device = resolve_device()
-    model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+    model = _resnet50_seed0(device)
     params = dict(model.named_parameters())
     gen = torch.Generator(device=device).manual_seed(600 + rank)
     batch = (torch.randn(OPT_BATCH, OPT_SIDE, OPT_SIDE, 3, device=device, dtype=torch.bfloat16,
@@ -4525,14 +4774,12 @@ def _hier_rank(rank: int, specs) -> dict:
     from kungfu_tpu_torch import api
     from kungfu_tpu_torch.base.ops import ReduceOp
     from kungfu_tpu_torch.examples import multislice_train
-    from kungfu_tpu_torch.models.resnet import init_resnet, resnet50, resnet_loss
+    from kungfu_tpu_torch.models.resnet import resnet_loss
     from kungfu_tpu_torch.ops.hierarchical import HierarchicalSGD
     from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
     from kungfu_tpu_torch.peer import get_default_peer
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     peer = get_default_peer()
     device = initialize_device_plane(backend="gloo", peer=peer)
     sess = peer.current_session()
@@ -4542,7 +4789,7 @@ def _hier_rank(rank: int, specs) -> dict:
              torch.randint(0, 1000, (OPT_BATCH,), device=device, generator=gen))
     out = {"rank": rank, "runs": {}}
     for compress in ("", "bf16"):
-        model = init_resnet(resnet50(1000), torch.Generator().manual_seed(0), device)
+        model = _resnet50_seed0(device)
         params = list(model.parameters())
         opt = HierarchicalSGD(torch.optim.SGD(params, lr=HIER_LR), world_size=HIER_WORLD,
                               name=f"chip-hier-{compress or 'f32'}", compress=compress,
@@ -4696,30 +4943,38 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v) for k, v in libs.items()})
 
-    occ = occupancy_phase(fa)
-    kern = kernel_phase(fa)
-    train = train_phase(fa)
-    profile_phase(train["step_ms"])
-    ring_launches = ring_phase()
-    resnet_phase(smi)
-    optimizers_phase(smi)
-    par_launches = parallel_phase(smi)
-    host = hostplane_phase(smi)
-    hostnet_phase(smi, host["walks"])
-    sma_launches = sma_phase(smi)
-    async_phase(smi)
-    telemetry_phase(smi)
-    replan_phase(smi)
-    forensics_phase(smi)
-    elastic_phase(smi)
+    phases = {"build": time.perf_counter() - t0}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t
+        return out
+
+    occ = run("occupancy", occupancy_phase, fa)
+    kern = run("kernel", kernel_phase, fa)
+    train = run("train", train_phase, fa)
+    run("profile", profile_phase, train["step_ms"])
+    ring_launches = run("ring", ring_phase)
+    run("resnet", resnet_phase, smi)
+    run("optimizers", optimizers_phase, smi)
+    par_launches = run("parallel", parallel_phase, smi)
+    host = run("hostplane", hostplane_phase, smi)
+    run("hostnet", hostnet_phase, smi, host["walks"])
+    sma_launches = run("sma", sma_phase, smi)
+    run("async", async_phase, smi)
+    run("telemetry", telemetry_phase, smi)
+    run("replan", replan_phase, smi)
+    run("forensics", forensics_phase, smi)
+    run("elastic", elastic_phase, smi)
     t_new = time.perf_counter()
-    checkpoint_phase(smi)
-    resize_bench_phase(smi)
-    pair_phase(smi)
-    hier_phase(smi)
+    run("checkpoint", checkpoint_phase, smi)
+    run("resize_bench", resize_bench_phase, smi)
+    run("pair", pair_phase, smi)
+    run("hier", hier_phase, smi)
     emit("wall", seconds_before_checkpoint_phase=t_new - t_script,
          seconds_of_checkpoint_to_hier=time.perf_counter() - t_new,
-         seconds_total=time.perf_counter() - t_script)
+         seconds_total=time.perf_counter() - t_script, phases=phases)
 
     lines = []
     for kname, (key, tpu_line, tpu_body) in KERNELS.items():

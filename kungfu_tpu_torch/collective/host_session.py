@@ -40,10 +40,10 @@ Rendezvous names are the reference's byte for byte, so mixed worlds
 derive and adopt one plan.
 
 The async scheduler (`scheduler()`, `collective/scheduler.py`) lives
-as long as the session epoch. Not ported yet: the collective-order
-sentinel of KF_DEBUG_PROTOCOL, and the resource plane's compute
-fraction that `measured_compute_frac` would share (ROADMAP item 1e-iv;
-the port shares 0.0, the reference's "unmeasured").
+as long as the session epoch. The re-plan rounds share each peer's
+measured compute fraction (the resource plane's `compute_frac`) through
+`measured_compute_frac`, the clamp on a plan's predicted gain. Not
+ported yet: the collective-order sentinel of KF_DEBUG_PROTOCOL.
 """
 
 from __future__ import annotations
@@ -317,12 +317,41 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
     def zero_enabled(self) -> bool:
         """Whether this epoch runs the ZeRO-1 sharded weight update.
         `auto` resolves to on for multi-peer sessions. Cluster-agreed like
-        KF_CONFIG_ASYNC. (The reference's memory-plane advisory when
-        `auto` resolves off is ROADMAP item 1e-iv.)"""
+        KF_CONFIG_ASYNC.
+
+        The memory plane is consulted here but cannot flip the
+        resolution: the knob consensus carries the mode string, not the
+        resolved boolean, so two peers resolving `auto` from their own
+        live RSS would pass the consensus check and deadlock on
+        mismatched rendezvous dataflow. The consult is advisory: when
+        `auto` resolves off (one peer) while this worker's measured
+        headroom is at or below the pressure line, it logs that sharding
+        would relieve the replicated optimizer state. The behavioural
+        consumer of measured headroom is the elastic grow gate
+        (`elastic/schedule.py`), where one decision maker is safe."""
         if self.zero_mode == "on":
             return True
         if self.zero_mode == "auto":
-            return self.size >= 2
+            on = self.size >= 2
+            if not on and not getattr(self, "_zero_mem_advised", False):
+                self._zero_mem_advised = True  # one advisory per session
+                try:
+                    from kungfu_tpu_torch.telemetry import log
+                    from kungfu_tpu_torch.telemetry import memory as tmem
+
+                    sig = tmem.get_plane().signals()
+                    if sig.get("memory/pressure"):
+                        log.warn(
+                            "zero=auto resolved off (single peer) under "
+                            "measured memory pressure (headroom %.0f%%): "
+                            "replicated optimizer state is a candidate — "
+                            "grow the cluster or set KF_CONFIG_ZERO=on "
+                            "fleet-wide",
+                            100.0 * float(sig.get("memory/headroom_frac", 0)),
+                        )
+                except Exception:  # noqa: BLE001 - an advisory never blocks the resolution
+                    pass
+            return on
         return False
 
     def scheduler(self):
@@ -622,16 +651,25 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
         return out.reshape(k, k).to(torch.float64).numpy()
 
     def measured_compute_frac(self) -> float:
-        """All-gather each peer's measured compute fraction and return
-        the cluster MAX, identical on every peer like
-        :meth:`measured_matrix`, so ``derive_plan``'s Amdahl clamp stays
-        a pure function of shared input. The port has no resource plane
-        yet (ROADMAP item 1e-iv): it contributes 0.0, the reference's own
-        "unmeasured" value, and still runs the all-gather in lockstep, so
-        a mixed world shares the reference peers' measurements and
-        derives one plan. Collective: call in lockstep."""
+        """All-gather each peer's measured window CPU fraction (the
+        resource plane's compute floor) and return the cluster MAX,
+        identical on every peer like :meth:`measured_matrix`, so
+        ``derive_plan``'s Amdahl clamp stays a pure function of shared
+        input. 0.0 when nobody has a measurement (no clamp: missing data
+        must never fabricate pessimism). One f32 a peer under the
+        reference's name, so a mixed world runs one round. Collective:
+        call in lockstep."""
         k = self.size
-        send = torch.zeros(1, dtype=torch.float32)
+        mine = 0.0
+        try:
+            from kungfu_tpu_torch.telemetry import resource as _tres
+
+            mine = max(0.0, min(1.0, _tres.get_plane().compute_frac()))
+        # an unmeasurable local floor degrades to 0.0 (no clamp), never
+        # kills the round: every peer still runs the all-gather below
+        except Exception:  # noqa: BLE001
+            pass
+        send = torch.tensor([mine], dtype=torch.float32)
         out = torch.zeros(k, dtype=torch.float32)
         self.all_gather(Workspace(send=send, recv=out, op=ReduceOp.SUM,
                                   name=self._replan_name("cf")))

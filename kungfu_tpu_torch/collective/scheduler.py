@@ -57,8 +57,11 @@ Step plane, as the reference's: each round records one
 sealed at ``flush`` — per bucket lane the submit → launch queue delay,
 the walk span with the walk engine's wait/send/edge attribution (fed
 through ``steptrace.walk_sink`` on the walk thread), the unpack, and
-ZeRO's weight all-gather tail. Served at ``/steptrace``. The
-memory-plane accountant of in-flight payloads is ROADMAP item 1e-iv.
+ZeRO's weight all-gather tail. Served at ``/steptrace``.
+
+Memory plane: the payload bytes of units packed but not yet unpacked are
+the ``sched_inflight`` bucket, through an accountant registered per
+epoch (weakly: a closed epoch's entry drops itself).
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.base.workspace import Workspace
 from kungfu_tpu_torch.collective.codec import dtype_str
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import memory as tmemory
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.telemetry import steptrace
 from kungfu_tpu_torch.utils import trace
@@ -183,9 +187,14 @@ class CollectiveScheduler:
             )
         else:
             self._queued_gauge = self._overlap_ctr = self._flush_wait_ctr = None
+        # memory plane: in-flight unit payloads are the scheduler's share of
+        # RSS, accounted weakly: a closed epoch's entry drops itself
+        tmemory.register_owner(f"scheduler:e{self.epoch_id}", "sched_inflight", self,
+                               lambda sched: sched.inflight_bytes())
 
     def inflight_bytes(self) -> int:
-        """Payload bytes of units packed but not yet unpacked."""
+        """Payload bytes of units packed but not yet unpacked (the memory
+        plane's `sched_inflight` bucket)."""
         with self._cond:
             return self._inflight_bytes
 

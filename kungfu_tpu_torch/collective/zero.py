@@ -50,8 +50,10 @@ re-slices every bucket's shard (masters, momentum, weight residual) to
 the NEW bounds and restores it bit for bit — flat and flat → two-level
 flips alike.
 With metrics on, the session keeps `kungfu_sharded_update_state_bytes`
-and `kungfu_sharded_update_seconds_total`; its memory-plane accountant
-is ROADMAP item 1e-iv.
+and `kungfu_sharded_update_seconds_total`. Its memory-plane accountant
+reports the shard masters, the optimizer state and the full-size reduce
+mirrors (each bucket's ``W``) under ``zero_state``, from the tensors'
+sizes.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from kungfu_tpu_torch.base.serialize import pack_leaves, unpack_leaves
 from kungfu_tpu_torch.base.workspace import Workspace
 from kungfu_tpu_torch.plan import topology as topo
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import memory as tmemory
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.pool import get_buffer_pool
@@ -253,6 +256,11 @@ class ShardedUpdateSession:
             self._state_gauge.set(self.state_bytes())
         else:
             self._state_gauge = self._update_ctr = None
+        # memory plane: shard masters + optimizer state + the full-size
+        # reduce mirrors, accounted weakly: the registry never pins a
+        # session across an elastic resize
+        tmemory.register_owner(f"zero:{name}", "zero_state", self,
+                               lambda zs: zs.state_bytes() + sum(b.W.nbytes for b in zs._buckets))
 
     def _add_bucket(self, names, params) -> None:
         total = int(sum(p.numel() for p in params))

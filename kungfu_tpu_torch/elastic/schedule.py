@@ -1,9 +1,11 @@
 """Step-based elastic schedules: "np:steps,np:steps,..." driving resizes.
 
 Port of `kungfu_tpu/elastic/schedule.py`, with its
-`kungfu_schedule_proposals_total` counter. Not ported yet (ROADMAP item
-1e-iv): the memory plane's grow deferral; without a memory plane no
-proposal is deferred, as the reference does for an unmeasured one. Capability parity: KungfuStepBasedSchedule (ops/cpu/elastic.cpp:16-81) +
+`kungfu_schedule_proposals_total` counter and the memory plane's grow
+deferral: rank 0 defers a scheduled grow while its measured headroom is
+at or below the pressure line (`kungfu_memory_grow_deferrals_total`),
+and proposes it when headroom is unmeasured. Capability parity:
+KungfuStepBasedSchedule (ops/cpu/elastic.cpp:16-81) +
 KungFuElasticTrainHook (hooks/elastic.py:14-88) — a declarative schedule
 of cluster sizes by global step; rank 0 publishes the target size to the
 config server at each boundary and every worker resizes via consensus.
@@ -97,6 +99,29 @@ class StepBasedSchedule:
             # proposed recently: the resize flows through the config-server
             # consensus in es.end(); give it time to land
             return None
+        if target > api.cluster_size():
+            try:
+                from kungfu_tpu_torch.telemetry import memory as tmem
+
+                ok, why = tmem.get_plane().grow_ok()
+            except Exception:  # noqa: BLE001 - a broken memory plane never blocks a resize
+                ok, why = True, "plane unavailable"
+            if not ok:
+                from kungfu_tpu_torch.telemetry import metrics
+
+                metrics.counter(
+                    "kungfu_memory_grow_deferrals_total",
+                    "Scheduled grow proposals deferred because the "
+                    "acting rank 0's measured memory headroom sat at "
+                    "or below the pressure line",
+                ).inc()
+                log.warn("schedule: deferring grow to %d at progress %d: %s",
+                         target, step, why)
+                # rate-limit the re-check like a sent proposal, so a
+                # pressured rank 0 logs once a window, not once a step
+                self._last_proposed = target
+                self._proposed_at = time.monotonic()
+                return None
         try:
             api.propose_new_size(target)
         except OSError as e:

@@ -440,6 +440,62 @@ _knob("KF_DECISION_PATIENCE", "2", _int,
       "before `adaptation_regressed` fires.",
       section=_SEC_DECISION, kind="int")
 
+_SEC_RESOURCE = "Resource attribution"
+_knob("KF_RESOURCE_INTERVAL", "2.0", _float,
+      "Minimum seconds between per-thread CPU accounting sweeps "
+      "(/proc/self/task deltas). Sweeps are on-demand — triggered by "
+      "/resources scrapes, policy signal refreshes and flight "
+      "snapshots — so this throttles, it does not schedule.",
+      section=_SEC_RESOURCE, kind="float")
+_knob("KF_RESOURCE_SAMPLE_HZ", "0", _float,
+      "Sampling-profiler rate (stack samples per second) splitting the "
+      "main thread into train-compute vs blocked-in-engine with "
+      "module-prefix aggregation. 0 (the default) means the sampler "
+      "thread is never started and allocates nothing.",
+      section=_SEC_RESOURCE, kind="float")
+_knob("KF_RESOURCE_KEEP", "512", _int,
+      "Sampling-profiler ring size: how many recent stack samples the "
+      "module-prefix aggregation is computed over.",
+      section=_SEC_RESOURCE, kind="int")
+
+_SEC_MEMORY = "Memory attribution"
+_knob("KF_MEMORY_INTERVAL", "2.0", _float,
+      "Minimum seconds between memory accounting sweeps (RSS sample, "
+      "registered byte accountants, major-fault delta). Sweeps are "
+      "on-demand — triggered by /memory scrapes, policy signal "
+      "refreshes and flight snapshots — so this throttles, it does "
+      "not schedule.",
+      section=_SEC_MEMORY, kind="float")
+_knob("KF_MEMORY_WINDOWS", "6", _int,
+      "Leak-watchdog patience: consecutive sweeps a bucket's tracked "
+      "bytes must grow strictly before the one-shot "
+      "`memory_leak_suspect` audit event fires for that bucket.",
+      section=_SEC_MEMORY, kind="int")
+_knob("KF_MEMORY_WARMUP", "30", _float,
+      "Leak-watchdog arming delay in seconds: sweeps inside this "
+      "window after the plane starts never accumulate growth streaks. "
+      "A booting process's RSS grows monotonically (imports, first "
+      "allocations) and a real leak persists long past any boot "
+      "transient — without the grace, a slow boot under load fakes a "
+      "`memory_leak_suspect` on a clean worker.",
+      section=_SEC_MEMORY, kind="float")
+_knob("KF_MEMORY_TREND", "64", _int,
+      "RSS trend window: how many recent (time, rss) sweep samples the "
+      "linear headroom forecast is fitted over.",
+      section=_SEC_MEMORY, kind="int")
+_knob("KF_MEMORY_OOM_MARGIN", "0.05", _float,
+      "Postmortem OOM verdict margin: a dead worker whose final RSS "
+      "was within this fraction of its memory limit is marked "
+      "`oom_suspected` in the harvested postmortem.",
+      section=_SEC_MEMORY, kind="float")
+_knob("KF_MEMORY_LIMIT", "0", _int_bytes,
+      "Override for the effective memory limit in bytes (accepts "
+      "float notation, e.g. `2e9`). 0 (the default) means auto: "
+      "cgroup v2 `memory.max`, cgroup v1 hierarchical fallback, then "
+      "physical RAM. Set it to rehearse OOM headroom behaviour under "
+      "a fake tight limit.",
+      section=_SEC_MEMORY, kind="int", default_doc="0 (auto)")
+
 _SEC_FLIGHT = "Flight recorder"
 _knob("KF_FLIGHT", "", _bool,
       "Explicit on/off override for the flight recorder; unset means "

@@ -22,23 +22,26 @@ gain is computed from), and pulls the measured signals back into
   (this worker's own recent timelines);
 - the decision ledger: ``decision/last_kind`` +
   ``decision/last_realized_gain`` + ``decision/regressed``;
+- the resource plane: ``resource/cpu_frac`` + ``resource/engine_frac`` +
+  ``resource/saturated`` (this worker's per-thread CPU attribution);
+- the memory plane: ``memory/headroom_frac`` + ``memory/pressure`` +
+  ``memory/leak_suspect`` (this worker's byte attribution and headroom);
 - ``monitor.cluster_health()``: the runner aggregator's ``cluster/*``
   signals (straggler flags, scores and causes, ``cluster/updated_at``)
   plus its cluster-wide ``step/*`` election (``step/critical_peer``,
-  ``step/critical_edge``), which override the local step values on the
-  shared keys.
+  ``step/critical_edge``), ``resource/saturated_peers`` and
+  ``memory/min_headroom_peer`` + ``memory/min_headroom_frac``; its
+  values override the local ones on the shared ``step/*``,
+  ``resource/*`` and ``memory/*`` keys.
 
 :class:`ReplanPolicy` votes measured-topology re-plans and demotions
 through the session's lockstep rounds, :class:`PrecisionPolicy` votes
 the wire precision, :class:`StragglerPolicy` acts on the cluster's
 straggler flags.
 
-Not ported yet, so their keys stay absent (the reference's eviction
-list still clears them): the resource and memory planes
-(``resource/*``, ``memory/*``), ROADMAP item 1e-iv. The reference reads
-every worker-local plane inside one ``try``; the port reads each plane
-on its own, so one that fails can never take the link signals down
-with it.
+The reference reads every worker-local plane inside one ``try``; the
+port reads each plane on its own, so one that fails can never take the
+link signals down with it.
 """
 
 from __future__ import annotations
@@ -136,8 +139,9 @@ class PolicyRunner:
     )
 
     def _pull_cluster_signals(self) -> None:
-        """Merge the link-table, walk-profiler, step-plane and
-        decision-ledger signals, then the cluster's, into ctx.metrics
+        """Merge the link-table, walk-profiler, step-plane,
+        decision-ledger, resource-plane and memory-plane signals, then
+        the cluster's, into ctx.metrics
         (throttled). The previous refresh's
         values are evicted FIRST: a source that went quiet (e.g. the only
         estimated peer departed and was pruned) returns {} and must take
@@ -146,7 +150,7 @@ class PolicyRunner:
         to prevent. Each plane is read on its own, so one that fails
         never drops the others. The cluster's health signals come last:
         its cluster-wide values override the worker-local ones on the
-        shared ``step/*`` keys."""
+        shared ``step/*``, ``resource/*`` and ``memory/*`` keys."""
         now = time.monotonic()
         if now - self._signals_at < self.CLUSTER_SIGNAL_PERIOD:
             return
@@ -157,6 +161,8 @@ class PolicyRunner:
         from kungfu_tpu_torch.collective.profiler import get_walk_profiler
         from kungfu_tpu_torch.telemetry import decisions as _tdec
         from kungfu_tpu_torch.telemetry import link as _link
+        from kungfu_tpu_torch.telemetry import memory as _tmem
+        from kungfu_tpu_torch.telemetry import resource as _tres
         from kungfu_tpu_torch.telemetry import steptrace as _steptrace
 
         for name, read in (
@@ -164,6 +170,8 @@ class PolicyRunner:
                 ("walk profiler", lambda: get_walk_profiler().signals()),
                 ("step plane", lambda: _steptrace.get_store().local_signals()),
                 ("decision ledger", lambda: _tdec.get_ledger().signals()),
+                ("resource plane", lambda: _tres.get_plane().signals()),
+                ("memory plane", lambda: _tmem.get_plane().signals()),
                 ("cluster health", lambda: monitor.cluster_health())):
             try:
                 self.ctx.metrics.update(read())

@@ -87,6 +87,8 @@ class DebugServer:
     - ``/cluster/links``   k×k link matrix (per-edge bandwidth/latency)
     - ``/cluster/steps``   merged per-step critical-path records
     - ``/cluster/decisions`` merged adaptation-decision ledger
+    - ``/cluster/resources`` merged per-thread CPU attribution view
+    - ``/cluster/memory``  merged per-subsystem byte attribution view
     - anything else        the Stage/worker debug dump
 
     The dispatch is built from the aggregator's ``CLUSTER_ROUTES``, so a

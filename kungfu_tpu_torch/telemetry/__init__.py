@@ -8,12 +8,15 @@
   strategy audit log;
 - :mod:`~kungfu_tpu_torch.telemetry.log`: the rank-prefixed logger;
 - :mod:`~kungfu_tpu_torch.telemetry.http`: the per-worker ``/metrics``,
-  ``/trace``, ``/audit``, ``/steptrace``, ``/decisions`` and
-  ``/host/telemetry`` endpoint;
+  ``/trace``, ``/audit``, ``/steptrace``, ``/decisions``, ``/resources``,
+  ``/memory`` and ``/host/telemetry`` endpoint;
 - imported lazily: :mod:`~kungfu_tpu_torch.telemetry.promparse`
   (exposition parsing and federation),
   :mod:`~kungfu_tpu_torch.telemetry.steptrace` (per-step timelines),
   :mod:`~kungfu_tpu_torch.telemetry.decisions` (the decision ledger),
+  :mod:`~kungfu_tpu_torch.telemetry.resource` and
+  :mod:`~kungfu_tpu_torch.telemetry.memory` (the resource and memory
+  planes),
   :mod:`~kungfu_tpu_torch.telemetry.flight` (the flight recorder and
   postmortems), :mod:`~kungfu_tpu_torch.telemetry.straggler` and
   :mod:`~kungfu_tpu_torch.telemetry.cluster` (the runner-side

@@ -27,6 +27,14 @@ serves it from the watcher's debug endpoint:
   clock offsets, each step carrying its elected critical (peer, bucket,
   edge) chain, overlap fraction and queue-delay fraction — "which
   bucket on which peer over which edge was the long pole" as data;
+- ``/cluster/resources`` — the resource plane: every worker's
+  ``/resources`` per-thread CPU attribution merged into one view with the
+  saturated (compute-bound) peers elected — the input that lets
+  straggler events carry ``cause=compute`` vs ``network``;
+- ``/cluster/memory`` — the memory plane: every worker's ``/memory``
+  bucket decomposition, headroom forecast and thrash flag merged into one
+  view with the minimum-headroom peer elected — the grow-gate input and
+  the feed for ``cause=memory`` straggler attribution;
 - ``/cluster/decisions`` — the decision plane: every
   worker's ``/decisions`` ledger merged into one NTP-aligned causal
   timeline — each adaptation (strategy/wire vote, re-plan, mode flip,
@@ -46,12 +54,9 @@ or strategy switch on skew.
 
 The aggregator scrapes a port worker and a reference worker alike: both
 serve the same ``/metrics`` exposition and the same ``/steptrace``,
-``/decisions`` and ``/host/telemetry`` documents. Left for the port's
-resource and memory planes (ROADMAP item 1e-iv): the reference's
-``/cluster/resources`` and ``/cluster/memory`` views (they answer 404
-here), the health document's ``resources`` and ``memory`` summaries, the
-``resource/*`` and ``memory/*`` signals, and the aggregator's own
-``footprint_bytes`` accountant.
+``/decisions``, ``/resources``, ``/memory`` and ``/host/telemetry``
+documents. The aggregator's own state is accounted in its process's
+memory plane (``footprint_bytes``, the ``aggregator`` accountant).
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.telemetry import audit, log, metrics, promparse
 from kungfu_tpu_torch.telemetry import decisions as tdecisions
 from kungfu_tpu_torch.telemetry import link as tlink
+from kungfu_tpu_torch.telemetry import memory as tmemory
+from kungfu_tpu_torch.telemetry import resource as tresource
 from kungfu_tpu_torch.telemetry import steptrace as tstep
 from kungfu_tpu_torch.telemetry import straggler as tstraggler
 from kungfu_tpu_torch.telemetry.straggler import StragglerScorer
@@ -119,9 +126,9 @@ HEALTH_URL_ENV = "KF_CLUSTER_HEALTH_URL"
 # wraps its cache lock in digest(); never acquire them the other way
 _KF_LOCK_ORDER = ("_refresh_lock", "_lock")
 
-# the per-worker plane documents a sweep merges (path, digest key); the
-# reference's /resources and /memory join with ROADMAP item 1e-iv
-PLANE_PATHS = (("/steptrace", "steptrace"), ("/decisions", "decisions"))
+# the per-worker plane documents a sweep merges (path, digest key)
+PLANE_PATHS = (("/steptrace", "steptrace"), ("/decisions", "decisions"),
+               ("/resources", "resources"), ("/memory", "memory"))
 
 # the worker endpoint a host head's digest pre-merges
 HOST_DIGEST_PATH = "/host/telemetry"
@@ -136,6 +143,8 @@ CLUSTER_ROUTES = (
     "/cluster/links",
     "/cluster/steps",
     "/cluster/decisions",
+    "/cluster/resources",
+    "/cluster/memory",
     "/cluster/audit",
     "/cluster/postmortem",
 )
@@ -592,6 +601,14 @@ class TelemetryAggregator:
         self._decisions: Dict[Tuple[str, int, float], dict] = {}
         _dkeep = int(knobs.get("KF_DECISION_KEEP"))
         self._decisions_keep = _dkeep if _dkeep > 0 else 64
+        # resource plane: the latest merged cluster view of every
+        # worker's /resources document — a CURRENT-STATE view (like
+        # health), so each refresh REPLACES it wholesale: a dead peer's
+        # frozen saturation flag steering straggler causes hours later
+        # would be worse than no data
+        self._resources: dict = {}
+        # memory plane: the same current-state contract
+        self._memory: dict = {}
         # one refresh unit per merged plane: each
         # used to carry its own refresh lock + monotonic stamp + inline
         # staleness block; _RefreshedPlane is that block, once. The
@@ -603,6 +620,10 @@ class TelemetryAggregator:
                 "step", self._refresh_steps_locked, eff),
             "decisions": _RefreshedPlane(
                 "decision", self._refresh_decisions_locked, eff),
+            "resources": _RefreshedPlane(
+                "resource", self._refresh_resources_locked, eff),
+            "memory": _RefreshedPlane(
+                "memory", self._refresh_memory_locked, eff),
         }
         # scale mode: flat below KF_AGG_HIER_MIN_PEERS
         # (exact historical behavior), hierarchical/sampled/delta above
@@ -628,6 +649,11 @@ class TelemetryAggregator:
         # merged view must accumulate (bounded below)
         self._audit_cache: Dict[Tuple, dict] = {}
         self._audit_cache_keep = 4096
+
+        # the aggregator's own tracked state is a long-lived buffer owner
+        # too: account it under its process's `telemetry` bucket, weakly
+        self._mem_acct = tmemory.register_owner("aggregator", "telemetry", self,
+                                                lambda agg: agg.footprint_bytes())
         self._g_step_overlap = reg.gauge(
             "kungfu_step_overlap_ratio",
             "Latest merged step's overlap fraction: scheduler-busy comm "
@@ -1237,20 +1263,25 @@ class TelemetryAggregator:
         newly_flagged = sorted(flagged - self._flagged)
         links_doc = None
         steps: List[dict] = []
+        resources: Optional[dict] = None
+        memory: Optional[dict] = None
         if newly_flagged:
             # measured attribution for the event: the step plane's
             # elected edge when this peer was recently critical, else
-            # the slowest link touching it — all inputs computed once
-            # per transition batch, never per peer
+            # the memory plane's thrash flag, the resource plane's
+            # saturation view, else the slowest link touching it — all
+            # inputs computed once per transition batch, never per peer
             links_doc = tlink.merge_matrix(
                 {st.label: st.links for st in self.peers()},
                 copy_edges=False,
             )
             with self._lock:
                 steps = list(self._steps)
+                resources = self._resources or None
+                memory = self._memory or None
         for peer in newly_flagged:
             sc = scores[peer]
-            cause, edge = tstraggler.classify_cause(peer, steps, links_doc)
+            cause, edge = tstraggler.classify_cause(peer, steps, links_doc, resources, memory)
             self._causes[peer] = cause
             log.warn(
                 "cluster: straggler detected: %s step_time=%.1fms "
@@ -1311,6 +1342,7 @@ class TelemetryAggregator:
         t, self._thread = self._thread, None
         if t is not None:
             t.join(self.timeout + 1.0)
+        self._mem_acct.close()
 
     # -- merged views ---------------------------------------------------
     def cluster_metrics(self) -> str:
@@ -1928,6 +1960,151 @@ class TelemetryAggregator:
             "edges": edges,
         }
 
+    # -- resource plane --------------------------------------
+
+    def _refresh_resources(self) -> None:
+        """Pull every worker's /resources document, align the perf
+        anchors with the clock offsets already estimated for
+        /cluster/trace and REPLACE the merged view (current state, not a
+        log: a vanished peer's stale saturation flag must not keep
+        classifying straggler causes). Whole refreshes serialize like
+        the step plane's."""
+        self._planes["resources"].refresh()
+
+    def _refresh_resources_locked(self) -> None:
+        docs, offsets = self._plane_docs("/resources")
+        merged = tresource.merge_resources(docs, offsets)
+        with self._lock:
+            self._resources = merged
+
+    def cluster_resources(self) -> dict:
+        """The /cluster/resources view: every live worker's resource
+        attribution document merged NTP-aligned, plus the cluster
+        election (saturated peers, max CPU fraction). Refreshes inline
+        when the cached merge is older than a scrape interval, so
+        one-shot consumers (`info resources` without a runner loop)
+        still see fresh attribution."""
+        self._planes["resources"].ensure_fresh()
+        with self._lock:
+            merged = dict(self._resources)
+        doc = {
+            "wall_time": time.time(),
+            "count": len(merged.get("peers") or {}),
+        }
+        doc.update(merged)
+        doc["plane"] = self.plane_envelope()
+        return doc
+
+    def _resources_summary(self) -> Optional[dict]:
+        """Compact resource signal for /cluster/health (the full
+        documents stay on /cluster/resources): per peer the window CPU
+        fraction, the training bucket's share of the busy window, the
+        engine share and the saturation flag — exactly the columns
+        `info top` renders."""
+        with self._lock:
+            merged = self._resources
+            if not merged or not merged.get("peers"):
+                return None
+            peers = {}
+            for label, doc in merged["peers"].items():
+                buckets = doc.get("buckets") or {}
+                peers[label] = {
+                    "cpu_frac": doc.get("cpu_frac"),
+                    "train_frac": (buckets.get("train") or {}).get("frac"),
+                    "engine_frac": doc.get("engine_frac"),
+                    "saturated": bool(doc.get("saturated")),
+                }
+            return {
+                "peers": peers,
+                "saturated": list(merged.get("saturated") or []),
+                "max_cpu_frac": merged.get("max_cpu_frac"),
+            }
+
+    # -- memory plane ----------------------------------------
+
+    def _refresh_memory(self) -> None:
+        """Pull every worker's /memory document, align the perf anchors
+        with the clock offsets already estimated for /cluster/trace and
+        REPLACE the merged view (current state, not a log: a vanished
+        peer's stale pressure flag must not keep gating resizes).
+        Whole refreshes serialize like the resource plane's."""
+        self._planes["memory"].refresh()
+
+    def _refresh_memory_locked(self) -> None:
+        docs, offsets = self._plane_docs("/memory")
+        merged = tmemory.merge_memory(docs, offsets)
+        with self._lock:
+            self._memory = merged
+
+    def cluster_memory(self) -> dict:
+        """The /cluster/memory view: every live worker's memory
+        attribution document merged NTP-aligned, plus the cluster
+        elections (minimum headroom + its peer, the pressure and
+        thrashing sets, leak suspects). Refreshes inline when the
+        cached merge is older than a scrape interval, so one-shot
+        consumers (`info memory` without a runner loop) still see
+        fresh attribution."""
+        self._planes["memory"].ensure_fresh()
+        with self._lock:
+            merged = dict(self._memory)
+        doc = {
+            "wall_time": time.time(),
+            "count": len(merged.get("peers") or {}),
+        }
+        doc.update(merged)
+        doc["plane"] = self.plane_envelope()
+        return doc
+
+    def _memory_summary(self) -> Optional[dict]:
+        """Compact memory signal for /cluster/health (the full
+        documents stay on /cluster/memory): per peer the used fraction,
+        headroom, thrash/pressure flags — exactly the columns `info
+        top` renders — plus the cluster elections."""
+        with self._lock:
+            merged = self._memory
+            if not merged or not merged.get("peers"):
+                return None
+            peers = {}
+            for label, doc in merged["peers"].items():
+                hf = doc.get("headroom_frac")
+                peers[label] = {
+                    "rss_bytes": doc.get("rss_bytes"),
+                    "headroom_frac": hf,
+                    "used_frac": (
+                        round(1.0 - hf, 6)
+                        if isinstance(hf, (int, float)) else None
+                    ),
+                    "pressure": bool(doc.get("pressure")),
+                    "thrashing": bool(doc.get("thrashing")),
+                }
+            return {
+                "peers": peers,
+                "min_headroom_frac": merged.get("min_headroom_frac"),
+                "min_headroom_peer": merged.get("min_headroom_peer"),
+                "pressure": list(merged.get("pressure") or []),
+                "thrashing": list(merged.get("thrashing") or []),
+                "leak_suspects": dict(merged.get("leak_suspects") or {}),
+            }
+
+    def footprint_bytes(self) -> int:
+        """The aggregator's OWN tracked-state footprint: deep size of
+        the link matrix, step ring, decision log and the merged
+        resource/memory views: the state that grows with the cluster,
+        measured and registered under the `telemetry` bucket of its
+        process's memory plane."""
+        with self._lock:
+            state = (
+                {st.label: st.links for st in self._peers.values()},
+                list(self._steps),
+                dict(self._decisions),
+                dict(self._resources),
+                dict(self._memory),
+                dict(self._link_cache),
+                dict(self._steps_pending),
+                dict(self._audit_cache),
+            )
+        return tmemory.deep_sizeof(state)
+
     def plane_envelope(self) -> dict:
         """Telemetry-plane health: one shared envelope every
         /cluster/* JSON document carries as `plane`, so any consumer —
@@ -2049,6 +2226,8 @@ class TelemetryAggregator:
             "step_skew": self.scorer.skew(),
             "links": self._links_summary(),
             "steps": self._steps_summary(),
+            "resources": self._resources_summary(),
+            "memory": self._memory_summary(),
             "plane": self.plane_envelope(),
         }
 
@@ -2412,4 +2591,33 @@ def health_signals(
             signals["step/overlap_frac"] = steps["overlap_frac"]
         if steps.get("queue_delay_frac") is not None:
             signals["step/queue_delay_frac"] = steps["queue_delay_frac"]
+    # resource plane: the cluster view of MY OWN attribution
+    # overrides the worker-local fallback on the shared resource/* keys
+    # (same precedence as the step plane) — policies on any peer also
+    # see the cluster-wide compute-bound election
+    res = snap.get("resources") or {}
+    mine = (res.get("peers") or {}).get(me) if me else None
+    if mine:
+        if mine.get("cpu_frac") is not None:
+            signals["resource/cpu_frac"] = mine["cpu_frac"]
+        if mine.get("engine_frac") is not None:
+            signals["resource/engine_frac"] = mine["engine_frac"]
+        signals["resource/saturated"] = bool(mine.get("saturated"))
+    if res.get("saturated") is not None:
+        signals["resource/saturated_peers"] = list(res["saturated"])
+    # memory plane: the cluster view of MY OWN headroom
+    # overrides the worker-local fallback on the shared memory/* keys;
+    # policies on any peer also see the cluster's weakest-headroom
+    # election — the grow-gate input
+    mem = snap.get("memory") or {}
+    mem_mine = (mem.get("peers") or {}).get(me) if me else None
+    if mem_mine:
+        if mem_mine.get("headroom_frac") is not None:
+            signals["memory/headroom_frac"] = mem_mine["headroom_frac"]
+            signals["memory/pressure"] = bool(mem_mine.get("pressure"))
+    if mem.get("min_headroom_peer") is not None:
+        signals["memory/min_headroom_peer"] = mem["min_headroom_peer"]
+        signals["memory/min_headroom_frac"] = mem.get("min_headroom_frac")
+    if mem.get("leak_suspects"):
+        signals["memory/leak_suspect"] = True
     return signals

@@ -40,8 +40,9 @@ silent by construction. ``KF_DECISION_KEEP=0`` disables it entirely
 
 The flight recorder journals the ledger's tail (:meth:`DecisionLedger.tail`,
 the last 8 records) in every snapshot, so a postmortem names the
-adaptation a worker was mid-flip on when it died. Not ported yet: the
-ledger's memory-plane accountant (ROADMAP item 1e-iv).
+adaptation a worker was mid-flip on when it died. The ledger registers
+a memory-plane accountant (``footprint_bytes``: its rings' caps plus the
+open records) in the ``telemetry`` bucket.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from typing import Dict, List, Optional
 
 from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import memory as tmemory
 
 _US = 1e6
 
@@ -228,6 +230,20 @@ class DecisionLedger:
                 "decision kind and verdict (delivered/neutral/regressed)",
                 ("kind", "verdict"),
             )
+        # memory plane: the rings report their cap, so filling up never
+        # reads as a leak; only the open records (unbounded until closed)
+        # can streak
+        tmemory.register_owner("decisions", "telemetry", self, lambda led: led.footprint_bytes())
+
+    def footprint_bytes(self) -> int:
+        """Capacity estimate of the ledger's state in bytes (the memory
+        plane's `telemetry` bucket): ring caps plus live open records."""
+        with self._lock:
+            ring = deque(self._ring, maxlen=self._ring.maxlen)
+            recent = deque(self._recent, maxlen=self._recent.maxlen)
+            open_ = list(self._open)
+        return (tmemory.ring_cap_bytes(ring) + tmemory.ring_cap_bytes(recent)
+                + tmemory.deep_sizeof(open_))
 
     # -- decision sites -------------------------------------------------
 

@@ -31,9 +31,10 @@ at most ~2x the cap per worker. Snapshots are bounded staleness by
 design — a SIGKILL loses at most the last ``KF_FLIGHT_INTERVAL``
 seconds, which is the flight-recorder contract, not a bug.
 
-The resource and memory planes are ROADMAP item 1e-iv: until they land a
-snapshot's ``resources`` and ``memory`` are ``None``, and the postmortem
-renders neither plane's attribution.
+Every snapshot carries the resource plane's CPU attribution and the
+memory plane's RSS decomposition (``resources``, ``memory``); the
+postmortem renders both, and :func:`oom_suspected` reads the final
+memory document for its verdict.
 """
 
 from __future__ import annotations
@@ -80,9 +81,6 @@ SPAN_TAIL = 48
 AUDIT_TAIL = 32
 LOG_TAIL = 60
 DECISION_TAIL = 8
-# the reference's KF_MEMORY_OOM_MARGIN default; the knob comes with the
-# memory plane (ROADMAP item 1e-iv)
-OOM_MARGIN = 0.05
 
 
 def _env_float(name: str, default: float) -> float:
@@ -399,14 +397,39 @@ class FlightRecorder:
             # name the adaptation the cluster was mid-flip on at death
             # (an unclosed decision with no outcome IS that answer)
             "decisions": decisions.get_ledger().tail(DECISION_TAIL),
-            # the resource plane's CPU attribution and the memory plane's
-            # RSS decomposition ride the reference's snapshots; both
-            # planes are ROADMAP item 1e-iv, so the keys stay and are None
-            "resources": None,
-            "memory": None,
+            # the resource plane's CPU attribution: a worker that died
+            # pegged at 100% telemetry CPU is a named finding, not a
+            # mystery — the final CPU split rides every snapshot
+            "resources": self._resources_doc(),
+            # the memory plane's RSS decomposition + headroom trend: an
+            # OOM-killed worker's final record names the bucket that ate
+            # the budget instead of leaving a bare exit code -9
+            "memory": self._memory_doc(),
         }
         rec.update(extra)
         return rec
+
+    @staticmethod
+    def _resources_doc() -> Optional[dict]:
+        try:
+            from kungfu_tpu_torch.telemetry import resource
+
+            return resource.get_plane().export()
+        # snapshot enrichment is best-effort: a failed /proc sweep costs
+        # the record one None field, not the journal the whole snapshot
+        except Exception:  # noqa: BLE001
+            return None
+
+    @staticmethod
+    def _memory_doc() -> Optional[dict]:
+        try:
+            from kungfu_tpu_torch.telemetry import memory as tmemory
+
+            plane = tmemory.get_plane()
+            plane.maybe_sweep(force=True)
+            return plane.export()
+        except Exception:  # noqa: BLE001 - the memory tail is enrichment, never a failed snapshot
+            return None
 
     @staticmethod
     def _current_step() -> Optional[float]:
@@ -663,18 +686,12 @@ def oom_suspected(last_memory: Optional[dict],
     measured memory limit, or the death was SIGKILL with the memory
     trend still rising (the OOM killer's exact signature: -9 out of
     nowhere while RSS climbs). A verdict, not a fact — the kernel logs
-    the real one in dmesg, which the worker can never report itself.
-
-    It reads the journalled memory document, which the port's snapshots
-    leave ``None`` until its memory plane lands (ROADMAP item 1e-iv): on
-    a port worker's postmortem it therefore answers ``False``. A
-    reference worker's journal carries the document and gets the
-    reference's verdict, at the reference knob's default margin."""
+    the real one in dmesg, which the worker can never report itself."""
     mem = last_memory or {}
     rss = mem.get("rss_bytes")
     limit = mem.get("limit_bytes")
     if rss and limit:
-        margin = OOM_MARGIN
+        margin = float(knobs.get("KF_MEMORY_OOM_MARGIN"))
         if rss >= limit * (1.0 - margin):
             return True
     if exit_code == -int(signal.SIGKILL):
@@ -795,8 +812,18 @@ def render_postmortem(pm: dict) -> str:
         lines.extend(
             " " + l for l in steptrace.render_timeline(tl, peer=str(peer))
         )
-    # the resource and memory planes' attribution renders once those
-    # planes are ported (ROADMAP item 1e-iv)
+    res = pm.get("last_resources")
+    if res:
+        from kungfu_tpu_torch.telemetry import resource as _tres
+
+        lines.append("final CPU attribution (resource plane):")
+        lines.extend(" " + l for l in _tres.render_worker_resources(res))
+    mem = pm.get("last_memory")
+    if mem:
+        from kungfu_tpu_torch.telemetry import memory as _tmem
+
+        lines.append("final memory attribution (memory plane):")
+        lines.extend(" " + l for l in _tmem.render_worker_memory(mem))
     if pm.get("oom_suspected"):
         lines.append(
             "⚠ OOM suspected: final RSS was at the memory limit (or the "

@@ -1,5 +1,5 @@
 """Per-worker telemetry HTTP endpoint: /metrics, /trace, /audit, /steptrace,
-/decisions and /host/telemetry.
+/decisions, /resources, /memory and /host/telemetry.
 
 Port of `kungfu_tpu/telemetry/http.py` (parity: the reference peer's
 port+10000 monitoring server, srcs/go/monitor/server.go, extended to the
@@ -16,14 +16,16 @@ whole telemetry subsystem):
 - ``/decisions`` the decision ledger's document
   (:mod:`~kungfu_tpu_torch.telemetry.decisions`), with the same
   ``?since=`` cursor over its records;
+- ``/resources`` the resource plane's per-bucket CPU accounting and
+  optional profiler aggregation
+  (:mod:`~kungfu_tpu_torch.telemetry.resource`), with perf-clock anchors;
+- ``/memory`` the memory plane's per-bucket byte accounting and headroom
+  forecast (:mod:`~kungfu_tpu_torch.telemetry.memory`), same anchors;
 - ``/host/telemetry`` the host sub-aggregator's digest when this worker
   is its host's elected head at scale, ``{"enabled": false}`` otherwise
   (:func:`~kungfu_tpu_torch.telemetry.cluster.host_digest_doc`).
 
-The JAX package's ``/resources`` and ``/memory`` views read the resource
-and memory planes, which the port does not have yet (ROADMAP item
-1e-iv), so they answer 404 here like any unknown path. A query string
-never selects the route; a view that raises is a 500. Every 200 carries
+Any other path is a 404. A query string never selects the route; a view that raises is a 500. Every 200 carries
 this process's perf clock and wall clock as headers, for offline trace
 merges.
 
@@ -87,6 +89,20 @@ def _decisions_doc(since: Optional[int] = None) -> dict:
     return decisions.get_ledger().export(since=since)
 
 
+def _resources_doc() -> dict:
+    # lazy: the plane's knobs resolve at first use
+    from kungfu_tpu_torch.telemetry import resource
+
+    return resource.get_plane().export()
+
+
+def _memory_doc() -> dict:
+    # lazy: the plane's knobs resolve at first use
+    from kungfu_tpu_torch.telemetry import memory
+
+    return memory.get_plane().export()
+
+
 def _adapt_route(fn: Callable) -> Callable[[Dict[str, str]], "tuple[str, str]"]:
     """Make a route callable accept the parsed query dict: routes taking
     one positional parameter get it, zero-argument callables are
@@ -131,6 +147,8 @@ class TelemetryServer:
                                      "application/json"),
             "/decisions": lambda q: (json.dumps(_decisions_doc(_since(q))),
                                      "application/json"),
+            "/resources": lambda: (json.dumps(_resources_doc()), "application/json"),
+            "/memory": lambda: (json.dumps(_memory_doc()), "application/json"),
             "/host/telemetry": lambda: (json.dumps(_host_doc()), "application/json"),
         }
         if extra_routes:

@@ -31,9 +31,8 @@ which is exactly the signal topology re-planning needs. Sends that had
 to (re)dial the peer are counted for bytes but skipped as bandwidth
 samples (connection setup is not link speed).
 
-The reference's memory-plane accountant of the table (its
-``footprint_bytes``) comes with the port's resource planes (ROADMAP
-item 1e-iv).
+The table registers a memory-plane accountant (``footprint_bytes``,
+bounded by ``KF_LINK_MAX_PEERS``) in the ``telemetry`` bucket.
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import memory as tmemory
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
 
 # minimum payload for a bandwidth sample: below this the send time is
@@ -151,6 +151,16 @@ class LinkTable:
                 "EWMA link latency from ping round trips",
                 ("dst",),
             )
+        # memory plane: the table is bounded by max_peers, so its report
+        # plateaus once the cluster is discovered
+        tmemory.register_owner("link_table", "telemetry", self, lambda t: t.footprint_bytes())
+
+    def footprint_bytes(self) -> int:
+        """Deep size of the per-destination estimator map (the memory
+        plane's `telemetry` bucket; bounded by KF_LINK_MAX_PEERS)."""
+        with self._lock:
+            snap = dict(self._links)
+        return tmemory.deep_sizeof(snap)
 
     def _est(self, dst: str) -> Optional[LinkEstimator]:
         """Get-or-create under the table lock; None past the peer cap

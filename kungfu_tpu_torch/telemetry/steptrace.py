@@ -29,14 +29,13 @@ microseconds — the span tracer's timebase — so the aggregator's clock
 offsets apply unchanged.
 
 This module must stay import-light (telemetry-only imports): the walk
-engine consults :func:`current_sink` on every allreduce walk. The
-memory-plane accountant of the ring is ROADMAP item 1e-iv; its
-:meth:`StepStore.footprint_bytes` is here.
+engine consults :func:`current_sink` on every allreduce walk. The store
+registers a memory-plane accountant (:meth:`StepStore.footprint_bytes`,
+the ring's cap) in the ``telemetry`` bucket.
 """
 
 from __future__ import annotations
 
-import sys
 import threading
 import time
 from collections import deque
@@ -44,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 from kungfu_tpu_torch import knobs
 from kungfu_tpu_torch.telemetry import config as tconfig
+from kungfu_tpu_torch.telemetry import memory as tmemory
 
 _US = 1e6
 
@@ -327,20 +327,16 @@ class StepStore:
         # the first export after they flush — `?since=N` re-scrapes ship
         # only newly-flushed timelines
         self._seq = 0
+        # memory plane: the ring is a long-lived buffer owner reporting its cap
+        tmemory.register_owner("steptrace", "telemetry", self, lambda st: st.footprint_bytes())
 
     def footprint_bytes(self) -> int:
-        """Capacity estimate of the step ring in bytes: the mean measured
-        timeline size x the ring's maxlen, rounded up to 1 KiB (the
-        reference's `memory.ring_cap_bytes`), so a filling ring reports
-        a constant."""
+        """Capacity estimate of the step ring in bytes (the memory plane's
+        `telemetry` bucket): the mean timeline size x the ring's maxlen,
+        so a filling ring reports a constant."""
         with self._lock:
-            items = list(self._ring)
-        if not items:
-            return 0
-        step = max(1, len(items) // 8)
-        sample = items[::step][:8]
-        mean = sum(_deep_sizeof(i, max_nodes=2_000) for i in sample) / len(sample)
-        return -(-int(mean * self._ring.maxlen) // 1024) * 1024
+            ring = list(self._ring)
+        return tmemory.ring_cap_bytes(deque(ring, maxlen=self._ring.maxlen))
 
     def begin_step(self, epoch: int, round_: int) -> Optional[StepRecorder]:
         """Start recording one round, or None when the ring is disabled
@@ -429,38 +425,6 @@ class StepStore:
         if qd:
             out["step/queue_delay_frac"] = sum(qd) / len(qd)
         return out
-
-
-def _deep_sizeof(obj, max_nodes: int = 100_000) -> int:
-    """Recursive ``sys.getsizeof`` over containers, bounded by
-    ``max_nodes`` visited objects; shared objects count once (the
-    reference's `memory.deep_sizeof`)."""
-    seen = set()
-    total = 0
-    stack = [obj]
-    nodes = 0
-    while stack and nodes < max_nodes:
-        o = stack.pop()
-        if id(o) in seen:
-            continue
-        seen.add(id(o))
-        nodes += 1
-        nbytes = getattr(o, "nbytes", None)
-        if isinstance(nbytes, int):
-            total += nbytes
-            continue
-        try:
-            total += sys.getsizeof(o)
-        except TypeError:
-            total += 64
-        if isinstance(o, dict):
-            stack.extend(o.keys())
-            stack.extend(o.values())
-        elif isinstance(o, (list, tuple, set, frozenset, deque)):
-            stack.extend(o)
-        elif hasattr(o, "__dict__") and not callable(o):
-            stack.append(o.__dict__)
-    return total
 
 
 _store: Optional[StepStore] = None

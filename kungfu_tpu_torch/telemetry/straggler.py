@@ -192,15 +192,19 @@ def classify_cause(
 
     ``resources``/``memory`` are the merged /cluster/resources and
     /cluster/memory documents (their ``peers[peer]["saturated"]`` and
-    ``peers[peer]["thrashing"]`` flags). The port has no resource or
-    memory plane yet (ROADMAP item 1e-iv): it keeps the signature, and
-    with both left ``None`` — where the reference's checks flag no peer —
-    it skips those two checks, so it reaches the reference's network or
-    unknown verdict on the same steps and links."""
+    ``peers[peer]["thrashing"]`` flags)."""
     for s in reversed(steps or []):
         c = s.get("critical")
         if c and str(c.get("peer")) == str(peer) and c.get("edge"):
             return "network", [str(peer), str(c["edge"])]
+    # lazy imports: straggler is imported by the scorer-only paths too
+    from kungfu_tpu_torch.telemetry import memory as tmemory
+    from kungfu_tpu_torch.telemetry import resource as tresource
+
+    if tmemory.peer_thrashing(memory, peer):
+        return "memory", None
+    if tresource.peer_saturated(resources, peer):
+        return "compute", None
     edge = blocking_edge(peer, steps=None, links=links)
     if edge is not None:
         return "network", edge

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from kungfu_tpu_torch import knobs
+from kungfu_tpu_torch.telemetry import memory as tmemory
 
 MAGIC = 0x4B46534D454D31  # "KFSMEM1"
 HEADER = 4096
@@ -170,6 +171,13 @@ class SenderArena:
         self._data = memoryview(self._mm)[HEADER:]
         self._alloc = 0  # mirrors _seq[0]; plain int avoids u64 churn
 
+        # memory plane: only the bytes written are resident (tmpfs pages are
+        # allocated on first touch): the writes' high-water up to the
+        # capacity, never the whole mapping
+        self._mem_acct = tmemory.register_owner(
+            f"shm:{os.path.basename(path)}", "arena", self,
+            lambda a: HEADER + min(a._alloc, a.capacity))
+
     def try_write(self, payload, nbytes: int) -> Optional[bytes]:
         """Copy `payload` into the ring; returns the packed descriptor, or
         None when the ring lacks space RIGHT NOW. Never blocks: spinning
@@ -197,6 +205,9 @@ class SenderArena:
         return DESC.pack(start, nbytes, advance)
 
     def close(self) -> None:
+        if self._mem_acct is not None:
+            self._mem_acct.close()
+            self._mem_acct = None
         try:
             self._seq = None
             self._data.release()
@@ -251,6 +262,11 @@ class ReceiverArena:
         self._releaser = _OrderedReleaser(self._seq)
         self._recv_seq = 0  # bytes of (pad+len) seen, in frame order
 
+        # memory plane: as the sender's, only the frames seen are resident
+        self._mem_acct = tmemory.register_owner(
+            f"shm:{os.path.basename(path)}", "arena", self,
+            lambda a: HEADER + min(a._recv_seq, a.capacity))
+
     def region(self, offset: int, length: int, advance: int):
         """(memoryview of the payload, release() callable). Frames arrive
         in allocation order on the single connection, so _recv_seq
@@ -268,6 +284,9 @@ class ReceiverArena:
         return view, release
 
     def close(self) -> None:
+        if self._mem_acct is not None:
+            self._mem_acct.close()
+            self._mem_acct = None
         try:
             self._seq = None
             self._data.release()

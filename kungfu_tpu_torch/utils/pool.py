@@ -24,6 +24,8 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import torch
 
+from kungfu_tpu_torch.telemetry import memory as tmemory
+
 # lock order: the executor takes the pool lock first, then a parked
 # worker's condition to hand the task over
 
@@ -140,3 +142,7 @@ _BUFFERS = BufferPool()
 def get_buffer_pool() -> BufferPool:
     """The process's pool of unpinned host buffers."""
     return _BUFFERS
+
+
+# memory plane: the process's buffer pool is a long-lived buffer owner
+tmemory.register_accountant("buffer_pool", "pool", _BUFFERS.cached_bytes)

@@ -23,10 +23,9 @@ tests/test_agg_scale.py.
   `update_host_role`'s election, `/host/telemetry`, the sampled link
   matrix), a dead target's nulled state and the overload backoff agree.
 
-The reference's aggregator also asks for `/resources` and `/memory`,
-which the port's workers do not serve yet (a 404): the comparisons leave
-out its `resources`/`memory` summaries and the per-peer error and
-staleness fields those 404s set."""
+Both aggregators also read every worker's `/resources` and `/memory`:
+their `resources`/`memory` summaries of /cluster/health, and the
+`resource/*`/`memory/*` signals, agree."""
 
 import json
 import math
@@ -177,12 +176,21 @@ def test_targets_for_workers_agree(ports):
 
 
 def test_the_port_serves_no_resource_or_memory_view():
+    """The resource and memory views: the port serves every route of the
+    reference, and a peerless aggregator's views and summaries agree."""
     assert "/cluster/resources" in rcluster.CLUSTER_ROUTES
-    assert set(cluster.CLUSTER_ROUTES) == set(rcluster.CLUSTER_ROUTES) - {
-        "/cluster/resources", "/cluster/memory"}
+    assert set(cluster.CLUSTER_ROUTES) == set(rcluster.CLUSTER_ROUTES)
     agg = cluster.TelemetryAggregator(interval=1.0)
-    assert not hasattr(agg, "cluster_resources") and not hasattr(agg, "cluster_memory")
-    assert "resources" not in agg.cluster_health() and "memory" not in agg.cluster_health()
+    ragg = rcluster.TelemetryAggregator(interval=1.0)
+    try:
+        for view in ("cluster_resources", "cluster_memory"):
+            got, want = getattr(agg, view)(), getattr(ragg, view)()
+            assert _timeless(got) == _timeless(want) and got["count"] == 0, view
+        health = agg.cluster_health()
+        assert health["resources"] is None and health["memory"] is None
+    finally:
+        agg.stop()
+        ragg.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +370,14 @@ def test_both_aggregators_merge_the_same_world_alike(world):
     assert all(info["error"] is None and info["step_rate"] > 0
                and info["step_time_p50_ms"] <= info["step_time_p99_ms"]
                for info in health["peers"].values())
-    assert "resources" not in health and "memory" not in health
+    # the resource and memory summaries read the same worker documents
+    theirs_health = theirs.cluster_health()
+    for key in ("resources", "memory"):
+        assert health[key] == theirs_health[key], key
+        assert sorted(health[key]["peers"]) == sorted(labels), key
+    assert _timeless(mine.cluster_resources(), "peers") == \
+        _timeless(theirs.cluster_resources(), "peers")
+    assert _timeless(mine.cluster_memory(), "peers") == _timeless(theirs.cluster_memory(), "peers")
     assert health["steps"]["critical_peer"] == labels[EDGE[0]]
     assert health["steps"]["critical_edge"] == labels[EDGE[1]]
     steps = mine.cluster_steps()
@@ -442,7 +457,8 @@ def test_health_signals_and_monitor_agree(world):
             assert d.pop("cluster/updated_at") is not None
             d.pop("plane/sweep_seconds", None)
         assert got == want
-        assert not any(k.startswith(("resource/", "memory/")) for k in got)
+        # the resource and memory planes' cluster-wide elections
+        assert "resource/saturated_peers" in got and "memory/min_headroom_peer" in got
     got = monitor.cluster_health()
     assert got == cluster.health_signals() and got["step/critical_edge"] == world[2].label
     assert got["cluster/stragglers"] == [world[SLOW].label]

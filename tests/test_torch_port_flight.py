@@ -15,8 +15,8 @@
   both packages read; SIGTERM flushes an exit record and the child still
   dies by the signal; SIGUSR2 writes a `dump`.
 - A snapshot carries the decision ledger's tail and the step ring, with
-  the reference's keys (``resources`` and ``memory`` None until the
-  port's resource planes land)."""
+  the reference's keys, ``resources`` and ``memory`` among them: the
+  resource and memory planes' documents."""
 
 import json
 import os
@@ -33,6 +33,8 @@ import pytest
 from kungfu_tpu.telemetry import config as rconfig
 from kungfu_tpu.telemetry import decisions as rdecisions
 from kungfu_tpu.telemetry import flight as rflight
+from kungfu_tpu.telemetry import memory as rmemory
+from kungfu_tpu.telemetry import resource as rresource
 from kungfu_tpu.telemetry import steptrace as rsteptrace
 from kungfu_tpu_torch.telemetry import config, decisions, flight, steptrace
 
@@ -313,7 +315,12 @@ def test_a_snapshot_carries_the_ledger_tail_and_the_step_ring(tmp_path, monkeypa
         assert [r["kind"] for r in mine] == ["meta", "dump", "exit"]
         assert set(mine[1]) == set(recs["theirs"][1])
         assert mine[1]["reason"] == "test" and mine[2]["reason"] == "done"
-        assert mine[1]["resources"] is None and mine[1]["memory"] is None
+        # the resource and memory planes' documents, with the reference's keys
+        for key, rmod in (("resources", rresource), ("memory", rmemory)):
+            doc = mine[1][key]
+            assert doc is not None and set(doc) == set(recs["theirs"][1][key]), key
+            assert set(doc) == set(rmod.get_plane().export()), key
+        assert mine[1]["memory"]["rss_bytes"] > 0 and mine[1]["resources"]["supported"]
         assert len(mine[1]["decisions"]) == flight.DECISION_TAIL == 8
         assert [d["detail"]["seq"] for d in mine[1]["decisions"]] == list(range(2, 10))
         assert mine[1]["steps"] == steptrace.get_store().timelines()

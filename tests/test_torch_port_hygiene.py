@@ -51,7 +51,9 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "policy",
                       # run-level forensics
                       "telemetry.straggler", "telemetry.steptrace", "telemetry.flight",
-                      "telemetry.cluster", "monitor")
+                      "telemetry.cluster", "monitor",
+                      # the resource and memory planes
+                      "telemetry.resource", "telemetry.memory")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -211,7 +213,8 @@ def test_no_module_of_the_port_names_the_jax_package_ml_dtypes_or_jax():
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|kungfu_tpu)\b", re.M)
-    sources = sorted((REPO / "kungfu_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted((REPO / "kungfu_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "chip_startup_probe.py"]
     assert len(sources) > 40
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []

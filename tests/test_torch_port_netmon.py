@@ -246,6 +246,8 @@ WORKER = textwrap.dedent("""\
     def get(path):
         with urllib.request.urlopen(base + path, timeout=30) as r:
             return r.read().decode()
+    # each plane sweeps when its view is read, and registers its families
+    planes = {path: json.loads(get(path))["supported"] for path in ("/resources", "/memory")}
     samples = promparse.parse_text(get("/metrics"))
     trace = json.loads(get("/trace"))
     audit = json.loads(get("/audit"))
@@ -266,7 +268,7 @@ WORKER = textwrap.dedent("""\
     names = sorted({s.name for s in samples})
     print("TM " + json.dumps({
         "rank": rank, "ref": ref, "sums": sums, "gathered": g is not None,
-        "lat": lat, "tree": tree, "fams": fams, "names": names,
+        "lat": lat, "tree": tree, "fams": fams, "names": names, "planes": planes,
         "spans": sorted({e["name"] for e in trace["traceEvents"]}),
         "audit": [r["kind"] for r in audit]}), flush=True)
 """)
@@ -325,21 +327,18 @@ def test_world_results_latencies_and_tree(telemetry_worlds, world):
     assert len(tree) == 4 and sum(1 for i, f in enumerate(tree) if i == f) == 1
 
 
-# families of the planes the port does not have yet: the resource and
-# memory planes (ROADMAP 1e-iv)
-LATER_PLANES = ("kungfu_memory_", "kungfu_resource_")
-
-
 @pytest.mark.parametrize("world", ["ref", "mixed"])
 def test_every_rank_serves_the_same_families_spans_and_audit(telemetry_worlds, world):
     ranks = telemetry_worlds[world]
     ref = telemetry_worlds["ref"][0]
     for x in ranks.values():
-        # a port rank registers every family a reference rank does, minus
-        # the planes the port does not have yet (memory, resources)
-        missing = set(ref["names"]) - set(x["names"])
-        assert all(n.startswith(LATER_PLANES) for n in missing), " ".join(sorted(missing))
-        assert not set(x["names"]) - set(ref["names"])
+        # a port rank registers every family a reference rank does, the
+        # resource and memory planes' too (each swept before the scrape)
+        assert x["planes"] == {"/resources": True, "/memory": True}
+        assert set(x["names"]) == set(ref["names"]), " ".join(
+            sorted(set(ref["names"]) ^ set(x["names"])))
+        assert any(n.startswith("kungfu_memory_") for n in x["names"])
+        assert any(n.startswith("kungfu_resource_") for n in x["names"])
         for span in ("collective.all_reduce", "collective.broadcast", "transport.send"):
             assert span in x["spans"]
         assert x["audit"] == ref["audit"]

@@ -7,9 +7,9 @@ process; mirrors tests/test_telemetry_cluster.py's scorer cases.
   recovering peer — give the same scores, flags, medians and skew in
   both packages, observation by observation.
 - `blocking_edge` and `classify_cause` give the same answers on a table
-  of merged steps and link matrices. The port has no resource or memory
-  plane yet: its `classify_cause` is held to the reference's with both
-  left None."""
+  of merged steps and link matrices, here with no resource or memory
+  view (both None); `test_torch_port_memory.py` holds the compute and
+  memory evidence."""
 
 import numpy as np
 import pytest

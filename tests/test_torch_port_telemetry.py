@@ -521,7 +521,7 @@ def server():
     ("/trace", 200), ("/trace?x=/audit", 200), ("/audit", 200), ("/audit?since=999999999", 200),
     ("/audit?since=bad", 200), ("/steptrace", 200), ("/steptrace?since=999999999", 200),
     ("/decisions", 200), ("/decisions?since=999999999", 200),
-    ("/resources", 404), ("/memory", 404), ("/host/telemetry", 200), ("/nope", 404),
+    ("/resources", 200), ("/memory", 200), ("/host/telemetry", 200), ("/nope", 404),
     ("/boom", 500)])
 def test_server_routes(server, path, status):
     got, body, headers = _get(server.port, path)
@@ -545,6 +545,9 @@ def test_server_routes(server, path, status):
         assert doc["timelines"] == []
     elif route == "/host/telemetry":
         assert json.loads(body) == {"enabled": False}
+    elif route in ("/resources", "/memory"):
+        doc = json.loads(body)
+        assert {"peer", "perf_now_us", "wall_time_s", "supported", "buckets"} <= set(doc)
     else:
         recs = json.loads(body)
         assert [r["kind"] for r in recs] == ([] if path.endswith("since=999999999") else ["first"])

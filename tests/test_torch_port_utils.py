@@ -119,8 +119,12 @@ def test_registry_and_doc():
         "KF_STEP_TIMELINE_KEEP", "KF_FLIGHT", "KF_FLIGHT_INTERVAL", "KF_FLIGHT_FSYNC",
         "KF_FLIGHT_MAX_BYTES", "KF_CLUSTER_HEALTH_URL", "KF_CLUSTER_SCRAPE_INTERVAL",
         "KF_AGG_DELTA", "KF_AGG_HIER_MIN_PEERS", "KF_AGG_LINK_ROTATION_SWEEPS",
-        "KF_AGG_LINK_TOP_EDGES", "KF_AGG_MAX_BACKOFF"}
-    assert len(knobs.names()) == 68
+        "KF_AGG_LINK_TOP_EDGES", "KF_AGG_MAX_BACKOFF",
+        # the resource and memory planes
+        "KF_RESOURCE_INTERVAL", "KF_RESOURCE_SAMPLE_HZ", "KF_RESOURCE_KEEP",
+        "KF_MEMORY_INTERVAL", "KF_MEMORY_WINDOWS", "KF_MEMORY_WARMUP", "KF_MEMORY_TREND",
+        "KF_MEMORY_OOM_MARGIN", "KF_MEMORY_LIMIT"}
+    assert len(knobs.names()) == 77
     doc = knobs.render_doc()
     theirs = set(_untagged(rknobs.render_doc()).splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
