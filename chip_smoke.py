@@ -49,6 +49,14 @@ Phases, each printing one JSON line:
            elementwise work summed apart); gates: eval logits in bf16 within
            2e-2 + 2e-2|ref| of the same weights in f32 at 4 images, finite
            losses falling on batch 0, running statistics finite and moved;
+           then the benchmarks' device entry points as a world of one on
+           card 0, each printing its RESULT line: `bench_xla` (`--method
+           XLA`, the fake ResNet-50's 23,435,432 f32 values, 10 timed
+           rounds; at a world of one `group_all_reduce` clones each
+           buffer and drives no NCCL, so its gate, the sums exactly the
+           inputs times the world's size, checks the entry point and its
+           RESULT line, not a reduction) and `bench_gns` (`--method GNS`,
+           the MLP's plain against its GNS-monitored step);
   optimizers  two gloo worker processes sharing card 0 train ResNet-50 at
            full width, 16 images a rank, 3 steps each of S-SGD (twice),
            ZeRO-1, SMA (alpha 0.1) and AdaptiveSGD (change_step 1) from one
@@ -118,7 +126,7 @@ Phases, each printing one JSON line:
            state at most a quarter of the parameters plus slack; step ms
            and the scheduler's stats, and the hooks at the default cap;
   telemetry  4 workers: S-SGD with telemetry off, then on, then
-           ZeroSGD with it on; rank 0 scrapes every rank's /metrics, /trace
+           ZeroSGD with it on, 6 steps each; rank 0 scrapes every rank's /metrics, /trace
            and /audit between steps;
   replan   measured topology: 4 workers on card 0, ResNet-50 at 16 images
            a rank, ZeroSGD(0.1, 0.9) over the segmented f32 ring on sockets
@@ -128,7 +136,7 @@ Phases, each printing one JSON line:
            the unshaped walk. (a) KF_SHAPE_LINKS shapes that edge and
            ReplanPolicy (every 4 steps, patience 2; reorder only, at a
            predicted 2x) runs 12 steps in a PolicyRunner; (b) ZeRO-1 with
-           api.check_replan after step 2 (reordered and weighted), 6 steps,
+           api.check_replan after step 2 (reordered and weighted), 4 steps,
            and (b2) the replicated update with the same plan adopted after
            the same step; (c) two virtual hosts {0, 1} and {2, 3} (1 ms and
            a cap on every cross-host edge, a shared uplink a host),
@@ -162,7 +170,7 @@ Phases, each printing one JSON line:
            and the run dir in `build/chip_smoke_fx/`). (a) 3 unshaped
            steps on the step-end path pick the rate at which the edge
            rank 1 -> 2 takes 4x the unshaped walk; a cluster epoch shapes
-           it and turns the async hook path on (2 buckets), 12 steps in a
+           it and turns the async hook path on (2 buckets), 10 steps in a
            PolicyRunner. Gates: every rank's /steptrace one timeline a
            round, a lane a bucket naming its ring successor; the last 6
            merged steps of /cluster/steps elect rank 1 and its edge to
@@ -183,14 +191,25 @@ Phases, each printing one JSON line:
            SIGTERM; gates: one postmortem naming SIGKILL, its last step,
            rank 3's last line, the step ring and the ledger's tail, its
            last snapshot's resource and memory documents and no leak
-           suspect in them, oom_suspected false over the last 8 memory
-           samples (KF_MEMORY_TREND=8), on /cluster/postmortem, in postmortems.jsonl and as the
+           suspect in them, rank 3 idle at most 4.5 s from its record to
+           its kill (what the idle added to its RSS printed by kind of
+           mapping), oom_suspected false over the last 12 memory
+           samples (KF_MEMORY_TREND=12), on /cluster/postmortem, in postmortems.jsonl and as the
            runner's one worker_postmortem; the survivors' journals whole,
            ending in their SIGTERM flush. Prints step ms, each view's
            scrape ms and bytes, the aggregator's sweep s, journal bytes and
            snapshots, the kill -> postmortem ms split into detection and
            harvest, and per rank the compute fraction, engine share, RSS
-           and bytes by accountant;
+           and bytes by accountant. The port's `info` CLI, called in
+           process at the end of (a) while the watcher serves /cluster/*:
+           top, links, steps, decisions, resources and memory with --json
+           (gate: the document the phase reads from the same route around
+           it, up to the fields that moved between those two reads) and
+           rendered (gates: every rank named; top, links and steps name the
+           shaped edge 1 -> 2, steps the count of merged steps the phase
+           read, decisions every rank's async_mode record); after (b),
+           `info postmortem <run dir>` names the one dead rank, its death
+           and last step as the postmortem gate reads them;
   elastic  BASELINE config 5's resize path: the port's kfrun
            (`python -m kungfu_tpu_torch.runner.cli -w`, a built-in config
            server, one warm standby) starts 2 workers of this script
@@ -221,7 +240,7 @@ Phases, each printing one JSON line:
            time to recover split into the runner's relaunch, the workers'
            start, the restore and the first step;
   resize_bench  `python -m kungfu_tpu_torch.bench_resize` (its JSON line;
-           gate: at least 5 resizes), then `examples/adaptive_batch` (40 steps) under
+           gate: at least 5 resizes), then `examples/adaptive_batch` (30 steps) under
            the port's kfrun -w from 1 worker on 4 slots; gates: it grows, its
            sizes never fall nor pass 4, every worker prints done, the ranks'
            w bitwise equal;
@@ -295,6 +314,7 @@ RTOL = ATOL = 2e-2  # bf16 parity, as tests/test_flash_attention.py holds it
 RING_LOSS_RTOL = 1e-4
 RESNET_EVAL_IMAGES = 4
 RESNET_RTOL = RESNET_ATOL = 2e-2  # bf16 eval logits against f32 on the card
+TOOL_ITERS = 10  # the benchmarks' --iters default: bench_xla's samples, bench_gns's windows
 OPT_RANKS, OPT_BATCH, OPT_STEPS, OPT_SIDE = 2, 16, 3, 224
 OPT_DEADLINE_S = 300
 OPT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_opt"
@@ -973,6 +993,7 @@ def resnet_phase(smi: str) -> None:
                       for name, t in b.model.named_buffers()])
     moved = (stats - init).abs().max().item()
     first, again = losses[0], losses[-bench.INNER]  # batch 0, first and last window
+    tools = tooling_benches()
     emit("resnet", **res, nvidia_smi=smi, batch=b.args.batch, image_size=b.args.image_size,
          inner=bench.INNER, windows=bench.WINDOWS, warmup_windows=bench.WARMUP_WINDOWS,
          steps=len(losses), first_loss=first, last_window_first_loss=again,
@@ -986,12 +1007,62 @@ def resnet_phase(smi: str) -> None:
                      "worst_tol_ratio": ratio, "rtol": RESNET_RTOL, "atol": RESNET_ATOL,
                      "ref_max_abs": want.abs().max().item()},
          stats_check={"finite": bool(stats.isfinite().all()), "max_moved": moved},
-         seconds=time.perf_counter() - t0)
+         tooling=tools, seconds=time.perf_counter() - t0)
     check(all(math.isfinite(v) for v in losses), f"non-finite ResNet loss: {losses}")
     check(again < first, f"ResNet loss did not fall on batch 0: {first} -> {again}")
     check(bool(got.isfinite().all()) and ratio <= 1.0,
           f"bf16 eval logits vs f32: worst error/tolerance {ratio}")
     check(bool(stats.isfinite().all()) and moved > 0.0, "running statistics did not move")
+
+
+def tooling_benches() -> dict:
+    """The port's `python -m kungfu_tpu_torch.benchmarks` device entry
+    points on card 0 as a world of one, each printing its RESULT line:
+    `--method XLA` (`bench_xla` over the fake ResNet-50's 53 buffers,
+    23,435,432 f32 ones; at a world of one `group_all_reduce` clones each
+    buffer and drives no NCCL, so the gate, the sums exactly the inputs
+    times the world's size, checks the entry point, its device and its
+    RESULT line, and its GiB/s is a clone rate; the gloo world of 2 in
+    tests/test_torch_port_benches.py checks the sums) and `--method GNS`
+    (`bench_gns`: the MLP's S-SGD step against the GNS-monitored one)."""
+    import io
+
+    import torch
+
+    from kungfu_tpu_torch.benchmarks.__main__ import bench_gns, bench_xla
+    from kungfu_tpu_torch.parallel import shutdown_device_plane
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        xla = bench_xla("resnet50-imagenet", TOOL_ITERS)
+    t_xla = time.perf_counter() - t0
+    exact = all(torch.equal(o, x * xla["devices"]) for o, x in zip(xla["outs"], xla["inputs"]))
+    values = sum(x.numel() for x in xla["inputs"])
+    dev = {o.device.type for o in xla["outs"]}
+    del xla["outs"], xla["inputs"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gns = bench_gns(TOOL_ITERS)
+    t_gns = time.perf_counter() - t0
+    shutdown_device_plane()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    check(exact and dev == {"cuda"} and xla["devices"] == 1,
+          f"bench_xla: the sums on {dev} are not the inputs times {xla['devices']}")
+    check(len(lines) == 2 and lines[0].startswith("RESULT: ")
+          and lines[0].endswith("[XLA x1 devices, resnet50-imagenet]")
+          and lines[1].startswith("RESULT: plain ") and lines[1].endswith("[GNS x1 devices]"),
+          f"the benchmarks' RESULT lines: {lines}")
+    check(all(math.isfinite(gns[k]) and gns[k] > 0 for k in ("plain_ms", "gns_ms")),
+          f"bench_gns: {gns}")
+    return {"bench_xla": {"result": lines[0], "gib_s": xla["gib_s"], "err": xla["err"],
+                          "values": values, "bytes": 4 * values, "iters": TOOL_ITERS,
+                          "exact": exact, "seconds": t_xla},
+            "bench_gns": {"result": lines[1], "plain_ms": gns["plain_ms"],
+                          "gns_ms": gns["gns_ms"], "overhead_pct": gns["overhead_pct"],
+                          "iters": TOOL_ITERS, "seconds": t_gns}}
 
 
 def _opt_rank(rank: int, peers) -> dict:
@@ -2355,7 +2426,7 @@ def sma_phase(smi: str) -> list:
 
 
 def _async_rank(rank: int, specs) -> dict:
-    """One worker of the async phase: ResNet-50 at 16 images a rank, 4
+    """One worker of the async phase: ResNet-50 at 16 images a rank, 3
     SGD steps of each run of ASYNC_RUNS from the same initial parameters
     and batches, each run in a cluster epoch of its own."""
     _worker_env(rank, specs, KF_CONFIG_ASYNC="on", KF_CONFIG_ZERO="on", KF_CONFIG_WIRE="off",
@@ -2441,7 +2512,7 @@ def async_worker(rank: int, _spawned, specs) -> None:
 def async_phase(smi: str) -> None:
     """The scheduler and ZeRO on ResNet-50: 4 workers on card 0 in one
     world (KF_CONFIG_ASYNC and KF_CONFIG_ZERO on, the wire codec off, the
-    segmented ring) train 4 SGD steps by S-SGD through the
+    segmented ring) train 3 SGD steps by S-SGD through the
     post-accumulate-grad hooks, by its step-end path, and by ZeroSGD;
     their parameters must agree bit for bit after every step, on every
     rank."""
@@ -2493,7 +2564,7 @@ def async_phase(smi: str) -> None:
 
 
 TM_RANKS = 4
-TM_STEPS = 8
+TM_STEPS = 6
 TM_DEADLINE_S = 400
 TM_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_tm"
 TM_FEATURES = "metrics,trace,audit"
@@ -2782,7 +2853,7 @@ RP_A_STEPS, RP_A_INTERVAL, RP_A_PATIENCE = 12, 4, 2
 # at the policy's default 1.05 (a weight refinement passes no gain bar)
 RP_A_MODE, RP_A_MIN_GAIN = "ring", 2.0
 RP_B_MODE = "auto"  # leg (b) adopts once, by api.check_replan: reordered and weighted
-RP_B_STEPS, RP_B_FLIP = 6, 2  # leg (b) adopts after this step
+RP_B_STEPS, RP_B_FLIP = 4, 2  # leg (b) adopts after this step
 # leg (c)'s rounds, after these steps: the two-level plan after step 1, rank
 # RP_C_DEMOTED demoted after step 2 (steps 3-4 run without it), promoted back
 # after step 4 (step 5 walks the whole two-level plan again)
@@ -3318,22 +3389,34 @@ def replan_gates(smi: str, specs, t_phase: float) -> None:
 
 FX_RANKS = 4
 FX_CALIB_STEPS = 3  # unshaped steps on the step-end path; the shaped edge's rate comes from them
-FX_STEPS = 12  # leg (a): shaped steps on the async hook path
+FX_STEPS = 10  # leg (a): shaped steps on the async hook path
 FX_LAST = 6  # leg (a)'s gate: the last merged steps that must elect the shaped edge
 FX_LR = 0.1
 FX_DEADLINE_S = 600  # kfrun -timeout
 FX_SIGNAL_WAIT_S = 40  # a worker's wait for its PolicyRunner to read the cluster's election
+FX_SWEPT_WAIT_S = 15  # the phase's wait for a sweep past the last step
+FX_FLUSH_WAIT_S = 15  # its wait for the survivors' SIGTERM flushes
 FX_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_fx"
 FX_SCRAPE_INTERVAL = 1.0
-# the memory plane's RSS trend over its last 8 samples: 4 s at the 0.5 s
-# snapshots, a window the idle stretch before rank 3's kill covers. So the
-# postmortem's oom_suspected is held over those 8 samples only: the
-# default 64 span 32 s, most of leg (a)'s training, whose first step raises
-# RSS by ~300 MB (the new epoch's buffer pool) before it stays flat
+# the memory plane's RSS trend over its last KF_TREND_SAMPLES samples, so
+# the postmortem's oom_suspected is held over them only: the default 64
+# span 32 s, most of leg (a)'s training, whose first step raises RSS by
+# ~300 MB (the new epoch's buffer pool) before it stays flat. 12 samples
+# are 6 s of 0.5 s snapshots before the kill. Rank 3's RSS drops by tens
+# of MB just before its record, then stays within a few pages until its
+# kill (the phase prints what the idle added as idle_rss_kb); but the fit
+# takes a flat series with one page-sized step in it for a rising trend,
+# which the reference's rule reads as an OOM at a SIGKILL
+# (tests/test_torch_port_memory.py). So the window must hold that drop:
+# rank 3 may idle at most FX_IDLE_MAX_S, a quarter of the window short of it
+KF_TREND_SAMPLES = 12
+FX_FLIGHT_INTERVAL = 0.5
+FX_IDLE_MAX_S = 0.75 * KF_TREND_SAMPLES * FX_FLIGHT_INTERVAL
 FX_KNOBS = dict(KF_CONFIG_ALGO="segmented", KF_CONFIG_SEGMENT_MIN_BYTES="0",
                 KF_CONFIG_WIRE="off", KF_CONFIG_SHM="0", KF_CONFIG_ASYNC="off",
-                KF_TELEMETRY="metrics,trace,audit", KF_FLIGHT_INTERVAL="0.5",
-                KF_CLUSTER_SCRAPE_INTERVAL=str(FX_SCRAPE_INTERVAL), KF_MEMORY_TREND="8")
+                KF_TELEMETRY="metrics,trace,audit", KF_FLIGHT_INTERVAL=str(FX_FLIGHT_INTERVAL),
+                KF_CLUSTER_SCRAPE_INTERVAL=str(FX_SCRAPE_INTERVAL),
+                KF_MEMORY_TREND=str(KF_TREND_SAMPLES))
 FX_WIRE = ("RING_SEGMENTED", "off")  # (strategy, codec): the ring's f32 bytes
 # the training's collectives: the step-end path's group and the scheduler's
 # buckets (a barrier's or a consensus's walk counts under another label)
@@ -3377,6 +3460,37 @@ def _rss_bytes() -> int:
     """This process's resident set, as the memory plane reads it."""
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+GLIBC_HEAP_ALIGN = 64 << 20  # glibc's HEAP_MAX_SIZE on 64-bit: a thread arena's heap alignment
+
+
+def _rss_by_mapping(path: str = "/proc/self/smaps") -> dict:
+    """This process's resident kB by kind of mapping: `thread_arenas`
+    (glibc's malloc heaps of threads other than the main one: anonymous,
+    aligned to 64 MiB and at most that long), `main_heap` ([heap], the
+    main thread's arena), `other_anon` (every other anonymous mapping:
+    pymalloc's arenas, thread stacks, torch's and CUDA's host memory) and
+    `files` (file-backed and the kernel's own)."""
+    out = {"thread_arenas": 0, "main_heap": 0, "other_anon": 0, "files": 0}
+    kind = "files"
+    with open(path) as f:
+        for line in f:
+            head = line.split(None, 5)
+            if "-" in head[0] and len(head) >= 5 and not head[0].endswith(":"):
+                lo, hi = (int(x, 16) for x in head[0].split("-"))
+                name = head[5].strip() if len(head) > 5 else ""
+                if name == "[heap]":
+                    kind = "main_heap"
+                elif name:
+                    kind = "files"
+                elif lo % GLIBC_HEAP_ALIGN == 0 and hi - lo <= GLIBC_HEAP_ALIGN:
+                    kind = "thread_arenas"
+                else:
+                    kind = "other_anon"
+            elif head[0] == "Rss:":
+                out[kind] += int(head[1])
+    return out
 
 
 def _fx_planes(rank: int, specs, sampled: dict) -> dict:
@@ -3537,7 +3651,10 @@ def forensics_worker(out_dir: str) -> int:
         a["updated_at_seen"] = sorted(seen - {None})
         a["planes"] = _fx_planes(rank, specs, sampled)
     rec["a"] = a
-    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    rec["written_at"] = time.time()  # rank 3's idle before its kill starts here
+    at_record = _rss_by_mapping()
+    (out / f"rank{rank}.tmp").write_text(json.dumps(rec))
+    (out / f"rank{rank}.tmp").rename(out / f"rank{rank}.json")
     sess.barrier(":fx:written")
 
     # (b) rank 0 takes the phase's SIGUSR2; then rank 3 SIGKILLs itself
@@ -3551,6 +3668,10 @@ def forensics_worker(out_dir: str) -> int:
             time.sleep(0.1)
         print(FX_LAST_WORDS, flush=True)
         time.sleep(0.5)  # the runner's pump reads the line before the kill
+        # what its idle added to its RSS, by kind of mapping
+        at_kill = _rss_by_mapping()
+        (out / "idle_rss_kb.json").write_text(json.dumps(
+            {kind: at_kill[kind] - at_record[kind] for kind in at_kill}))
         (out / "kill_at").write_text(repr(time.time()))
         os.kill(os.getpid(), signal.SIGKILL)
     time.sleep(FX_DEADLINE_S)  # a survivor: the recovery's SIGTERM stops it
@@ -3568,6 +3689,145 @@ def _fx_get(url: str, timing=None):
     return body.decode()
 
 
+# the port's `info` commands the forensics phase calls in process, each
+# with the watcher's route its --json prints
+FX_INFO_ROUTES = {"top": "/cluster/health", "links": "/cluster/links", "steps": "/cluster/steps",
+                  "decisions": "/cluster/decisions", "resources": "/cluster/resources",
+                  "memory": "/cluster/memory"}
+FX_INFO_TRIES = 3  # reads of a route a sweep may land between
+
+
+def _info(argv) -> tuple:
+    """(exit code, stdout) of the port's `python -m kungfu_tpu_torch.info`
+    called in process, through its entry function."""
+    import io
+
+    from kungfu_tpu_torch.info import __main__ as info
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            info.main(list(argv))
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue()
+
+
+def _stable_diff(before, got, after, path: str = "") -> list:
+    """The paths where `got` differs from `before` though `before` and
+    `after` (two reads around it) agree there: a field that moved between
+    the two reads is left out, every other field must be equal."""
+    if before == after:
+        return [] if got == before else [path or "/"]
+    if isinstance(before, dict) and isinstance(after, dict):
+        if set(before) != set(after):
+            return []
+        if not isinstance(got, dict) or set(got) != set(before):
+            return [f"{path}/{{keys}}"]
+        return [d for key in before
+                for d in _stable_diff(before[key], got[key], after[key], f"{path}/{key}")]
+    if isinstance(before, list) and isinstance(after, list) and len(before) == len(after):
+        if not isinstance(got, list) or len(got) != len(before):
+            return [f"{path}[len]"]
+        return [d for i, (b, g, a) in enumerate(zip(before, got, after))
+                for d in _stable_diff(b, g, a, f"{path}[{i}]")]
+    return []
+
+
+def _fx_info_views(url: str) -> dict:
+    """Each `info` command in process while the watcher serves /cluster/*:
+    its --json document between two reads of the same route by the phase
+    (FX_INFO_TRIES times at most, while a field that held still differs),
+    then its rendered frame."""
+    views = {}
+    for cmd, route in FX_INFO_ROUTES.items():
+        for attempt in range(1, FX_INFO_TRIES + 1):
+            before = json.loads(_fx_get(url + route))
+            t0 = time.perf_counter()
+            rc, text = _info([cmd, "--json", url])
+            ms = (time.perf_counter() - t0) * 1e3
+            after = json.loads(_fx_get(url + route))
+            diff = _stable_diff(before, json.loads(text), after) if rc == 0 else ["(none)"]
+            if not diff:
+                break
+        rendered_rc, rendered = _info([cmd, url])
+        views[cmd] = {"rc": rc, "json_ms": ms, "json_bytes": len(text), "json_diff": diff,
+                      "tries": attempt, "doc": after, "rendered_rc": rendered_rc,
+                      "rendered": rendered}
+    return views
+
+
+def _fx_info_gates(specs, info, steps_doc) -> dict:
+    """The `info` commands' gates: each exits 0; its --json document is
+    the phase's read of the same route up to the fields that moved
+    between two reads; each frame names every rank, the top, links and
+    steps frames the shaped edge 1 -> 2 the phase elects, the steps frame
+    the count of merged steps the phase read, the decisions frame every
+    rank's async_mode record. Returns what the phase's line prints."""
+    for cmd, v in info.items():
+        check(v["rc"] == 0 and v["rendered_rc"] == 0,
+              f"forensics: info {cmd} exited {v['rc']} (--json), {v['rendered_rc']}")
+        check(not v["json_diff"], f"forensics: info {cmd} --json differs from the phase's read "
+              f"of {FX_INFO_ROUTES[cmd]} at {v['json_diff'][:8]}")
+        missing = [spec for spec in specs if spec not in v["rendered"]]
+        check(not missing, f"forensics: info {cmd} does not name {missing}:\n{v['rendered']}")
+    top, links, steps = (info[c]["rendered"] for c in ("top", "links", "steps"))
+    check(f"last step critical: {specs[1]} →{specs[2]}" in top,
+          f"forensics: info top does not name the shaped edge:\n{top}")
+    peers = info["links"]["doc"]["peers"]
+    check(f"slowest edge [{peers.index(specs[1])}]→[{peers.index(specs[2])}]" in links,
+          f"forensics: info links' slowest edge is not the shaped one:\n{links}")
+    n = len(steps_doc["steps"])
+    check(len(info["steps"]["doc"]["steps"]) == n
+          and steps.startswith(f"{n} merged steps on record, showing {min(n, 8)}")
+          and f"critical {specs[1]} bucket" in steps and f"edge →{specs[2]}" in steps
+          and f"  *{specs[1]}  |" in steps,
+          f"forensics: info steps does not show the phase's {n} merged steps electing the "
+          f"shaped edge:\n{steps}")
+    dec = info["decisions"]
+    check(dec["rendered"].startswith(f"{len(dec['doc']['decisions'])} adaptation decision(s)")
+          and all(f"  {spec}  e" in dec["rendered"] for spec in specs)
+          and "async_mode" in dec["rendered"],
+          f"forensics: info decisions lacks the ranks' async_mode records:\n{dec['rendered']}")
+    return {cmd: {"json_ms": v["json_ms"], "json_bytes": v["json_bytes"], "tries": v["tries"],
+                  "rendered_lines": len(v["rendered"].splitlines())} for cmd, v in info.items()}
+
+
+def _fx_wire(cluster_metrics: str) -> dict:
+    """The training's ring bytes by peer label in /cluster/metrics."""
+    from kungfu_tpu_torch.telemetry import promparse
+
+    wire = {}
+    for s in promparse.parse_text(cluster_metrics):
+        labels = dict(s.labels)
+        if s.name == "kungfu_collective_wire_bytes_total" \
+                and labels.get("collective") in FX_TRAIN_COLLECTIVES \
+                and (labels.get("strategy"), labels.get("codec")) == FX_WIRE:
+            wire[labels["peer"]] = wire.get(labels["peer"], 0) + s.value
+    return wire
+
+
+def _fx_wait_swept(url: str, ranks, steptraces) -> None:
+    """Wait until a sweep after the last step has reached the cluster's
+    views: /cluster/metrics holds each rank's own ring bytes, and
+    /cluster/steps has merged the round before the ranks' last one (the
+    aggregator holds the newest round back until a newer one exists)."""
+    epoch = ranks[0]["a"]["epoch"]
+    last = max(t["round"] for doc in steptraces for t in doc["timelines"] if t["epoch"] == epoch)
+    own = {r["spec"]: r["calib"]["wire"][-1] + r["a"]["wire"][-1] for r in ranks}
+    t0 = time.monotonic()
+    while True:
+        merged = [s["round"] for s in json.loads(_fx_get(url + "/cluster/steps"))["steps"]
+                  if s["epoch"] == epoch]
+        if merged and merged[-1] >= last - 1 and _fx_wire(_fx_get(url + "/cluster/metrics")) == own:
+            return
+        check(time.monotonic() - t0 < FX_SWEPT_WAIT_S,
+              f"forensics: no sweep merged round {last - 1} (merged {merged[-3:]}) and the ranks' "
+              f"ring bytes {own} within {FX_SWEPT_WAIT_S} s")
+        time.sleep(0.1)
+
+
 def forensics_phase(smi: str) -> None:
     """Run-level forensics on the card: 4 workers of this script
     (`--forensics-worker`) on card 0 under the port's kfrun `-w
@@ -3576,7 +3836,7 @@ def forensics_phase(smi: str) -> None:
     trace and audit on, a flight snapshot every 0.5 s, the aggregator
     sweeping every 1 s; the run dir under build/chip_smoke_fx/run). (a)
     After an unshaped calibration the edge rank 1 -> 2 is shaped to 4x the
-    unshaped walk, 12 steps on the async hook path (2 buckets); (b) the
+    unshaped walk, 10 steps on the async hook path (2 buckets); (b) the
     phase sends rank 0 a SIGUSR2, rank 3 SIGKILLs itself, the phase waits
     for its postmortem on /cluster/postmortem and stops kfrun with
     SIGTERM."""
@@ -3617,18 +3877,24 @@ def forensics_phase(smi: str) -> None:
     try:
         # leg (a): the cluster's views while the workers train
         deadline = time.monotonic() + FX_DEADLINE_S
+        # the records are looked for every 0.1 s, the views read every
+        # FX_SCRAPE_INTERVAL: rank 3 idles from its record to its kill, and
+        # the postmortem's RSS trend covers only the last KF_MEMORY_TREND
+        # snapshots of that
+        next_scrape = 0.0
         while not all((FX_OUT / f"rank{r}.json").exists() for r in range(k)):
             alive("before leg (a) ended")
             check(time.monotonic() < deadline, "forensics: leg (a) did not end")
-            try:
-                health_during.append(json.loads(_fx_get(url + "/cluster/health",
-                                                         timing["/cluster/health"])))
-                _fx_get(url + "/cluster/steps", timing["/cluster/steps"])
-            except OSError:
-                pass  # the debug endpoint comes up with kfrun
-            time.sleep(FX_SCRAPE_INTERVAL)
+            if time.monotonic() >= next_scrape:
+                next_scrape = time.monotonic() + FX_SCRAPE_INTERVAL
+                try:
+                    health_during.append(json.loads(_fx_get(url + "/cluster/health",
+                                                             timing["/cluster/health"])))
+                    _fx_get(url + "/cluster/steps", timing["/cluster/steps"])
+                except OSError:
+                    pass  # the debug endpoint comes up with kfrun
+            time.sleep(0.1)
         ranks = [json.loads((FX_OUT / f"rank{r}.json").read_text()) for r in range(k)]
-        time.sleep(2 * FX_SCRAPE_INTERVAL + 0.5)  # two sweeps past the last step
         steptraces = []
         for spec in specs:
             port = int(spec.rsplit(":", 1)[1]) + 10000
@@ -3636,11 +3902,13 @@ def forensics_phase(smi: str) -> None:
                 doc = json.loads(_fx_get(f"http://127.0.0.1:{port}/steptrace",
                                          timing["/steptrace"]))
             steptraces.append(doc)
+        _fx_wait_swept(url, ranks, steptraces)
         for _ in range(3):
             steps_doc = json.loads(_fx_get(url + "/cluster/steps", timing["/cluster/steps"]))
             health_after = json.loads(_fx_get(url + "/cluster/health",
                                               timing["/cluster/health"]))
         cluster_metrics = _fx_get(url + "/cluster/metrics")
+        info = _fx_info_views(url)  # the port's info CLI on the same routes
 
         # leg (b): SIGUSR2 to rank 0, then rank 3's SIGKILL and its postmortem
         t0 = time.monotonic()
@@ -3667,7 +3935,12 @@ def forensics_phase(smi: str) -> None:
         audit_doc = json.loads(_fx_get(url + "/cluster/audit"))
         p.terminate()  # kfrun dies; kf-pdeathsig sends every worker SIGTERM
         p.wait(60)
-        time.sleep(3.0)  # the workers' SIGTERM flushes
+        # the survivors' SIGTERM flushes: each journal's last record
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < FX_FLUSH_WAIT_S and not all(
+                (flight.read_journal(flight.peer_dir(str(run_dir), spec))[0] or [{}])[-1]
+                .get("kind") == "exit" for spec in specs[:3]):
+            time.sleep(0.1)
     finally:
         if p.poll() is None:
             p.kill()
@@ -3677,18 +3950,19 @@ def forensics_phase(smi: str) -> None:
     views = dict(specs=specs, steptraces=steptraces, steps_doc=steps_doc,
                  health_during=health_during, health_after=health_after,
                  cluster_metrics=cluster_metrics, pms=pms, audit_doc=audit_doc, t_seen=t_seen,
-                 timing=timing)
+                 timing=timing, info_views=info)
     (FX_OUT / "views.json").write_text(json.dumps(views))  # what the gates read, for a look
     forensics_gates(smi, ranks=ranks, t_phase=t_phase, **views)
 
 
 def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, health_after,
-                    cluster_metrics, pms, audit_doc, t_seen, timing, t_phase) -> None:
+                    cluster_metrics, pms, audit_doc, t_seen, timing, t_phase,
+                    info_views) -> None:
     """The forensics phase's gates and its line, from the workers' records
     and the views the phase read (`views.json` in FX_OUT)."""
     import statistics
 
-    from kungfu_tpu_torch.telemetry import flight, promparse
+    from kungfu_tpu_torch.telemetry import flight
 
     k = len(specs)
     run_dir = str(FX_OUT / "run")
@@ -3743,13 +4017,7 @@ def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, hea
               f"forensics rank {r['rank']}: ctx.metrics {fin}, refreshes "
               f"{r['a']['updated_at_seen']}")
     # /cluster/metrics: each rank's ring bytes under its peer label, exactly
-    wire = {}
-    for s in promparse.parse_text(cluster_metrics):
-        labels = dict(s.labels)
-        if s.name == "kungfu_collective_wire_bytes_total" \
-                and labels.get("collective") in FX_TRAIN_COLLECTIVES \
-                and (labels.get("strategy"), labels.get("codec")) == FX_WIRE:
-            wire[labels["peer"]] = wire.get(labels["peer"], 0) + s.value
+    wire = _fx_wire(cluster_metrics)
     want = {specs[r]: _ring_bytes_total(units, k, r) for r in range(k)}
     own = {r["spec"]: r["calib"]["wire"][-1] + r["a"]["wire"][-1] for r in ranks}
     check(wire == want == own, f"forensics: ring wire bytes under peer= labels {wire}, the "
@@ -3789,6 +4057,14 @@ def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, hea
           "forensics: the rendered postmortem names neither the signal nor the last step, "
           "or lacks the planes' attribution")
     planes = _fx_plane_gates(specs, ranks, pm)
+    info_line = _fx_info_gates(specs, info_views, steps_doc)
+    # `info postmortem <run dir>` names the dead rank and the cause the gates above read
+    rc, pm_text = _info(["postmortem", run_dir])
+    check(rc == 0 and pm_text.startswith("1 worker death(s) on record")
+          and f"== postmortem: {dead} ==" in pm_text and f"died: {pm['death']}" in pm_text
+          and f"last step: {int(pm['last_step'])}" in pm_text,
+          f"forensics: info postmortem {run_dir} exited {rc}:\n{pm_text[:3000]}")
+    info_line["postmortem"] = {"lines": len(pm_text.splitlines()), "death": pm["death"]}
     journals = {}
     for r, spec in enumerate(specs):
         recs, errors = flight.read_journal(flight.peer_dir(run_dir, spec))
@@ -3848,7 +4124,7 @@ def forensics_gates(smi, specs, ranks, steptraces, steps_doc, health_during, hea
                      "last_record_age_s": pm["last_record_age_s"],
                      "output_tail_lines": len(pm["output_tail"]),
                      "decisions": [d["kind"] for d in pm["last_decisions"]]},
-         planes=planes, seconds=time.perf_counter() - t_phase)
+         planes=planes, info=info_line, seconds=time.perf_counter() - t_phase)
 
 
 def _fx_plane_gates(specs, ranks, pm) -> dict:
@@ -3856,6 +4132,8 @@ def _fx_plane_gates(specs, ranks, pm) -> dict:
     what rank 0 read during leg (a), each rank's own record and rank 3's
     postmortem; returns what the phase's line prints of them."""
     import statistics
+
+    from kungfu_tpu_torch.telemetry import flight
 
     planes = [r["a"]["planes"] for r in ranks]
     p0 = planes[0]
@@ -3911,11 +4189,25 @@ def _fx_plane_gates(specs, ranks, pm) -> dict:
     check(pm["last_resources"] is not None and pm["last_memory"] is not None,
           f"forensics: rank 3's postmortem: its last snapshot's planes "
           f"{pm['last_resources'] is not None}, {pm['last_memory'] is not None}")
-    # KF_MEMORY_TREND=8 (FX_KNOBS): the verdict reads the RSS trend over the
-    # 8 samples (4 s) before the kill, not over leg (a)'s training
+    # KF_MEMORY_TREND (FX_KNOBS): the verdict reads the RSS trend over the
+    # last KF_TREND_SAMPLES snapshots before the kill, not over leg (a)'s training
+    kill_at = float((FX_OUT / "kill_at").read_text())
+    snaps = [x["memory"] for x in flight.read_journal(flight.peer_dir(str(FX_OUT / "run"),
+                                                                       specs[3]))[0]
+             if x.get("kind") == "snapshot" and x.get("memory")][-2 * KF_TREND_SAMPLES:]
+    rss_tail = [[round(m["wall_time_s"] - kill_at, 2), m["rss_bytes"],
+                 m.get("trend_bytes_per_s")] for m in snaps]
+    idle = kill_at - ranks[3]["written_at"]
+    idle_rss_kb = json.loads((FX_OUT / "idle_rss_kb.json").read_text())
+    check(idle <= FX_IDLE_MAX_S,
+          f"forensics: rank 3 idled {idle:.2f} s from its record to its kill, past the "
+          f"{FX_IDLE_MAX_S} s that keep its drop in RSS at the record inside the postmortem's "
+          f"{KF_TREND_SAMPLES} x {FX_FLIGHT_INTERVAL} s trend window (a slow host?); without "
+          f"the drop the idle creep ({idle_rss_kb} kB) would read as an OOM")
     check(pm["oom_suspected"] is False,
-          f"forensics: rank 3's postmortem says oom_suspected over its last 8 memory samples "
-          f"(trend {pm['last_memory'].get('trend_bytes_per_s')} B/s)")
+          f"forensics: rank 3's postmortem says oom_suspected over its last {KF_TREND_SAMPLES} "
+          f"memory samples (trend {pm['last_memory'].get('trend_bytes_per_s')} B/s; idle "
+          f"{idle:.2f} s; [s to the kill, RSS, trend]: {rss_tail})")
     check(not pm["last_memory"]["leak_suspects"],
           f"forensics: rank 3's last snapshot names leak suspects "
           f"{pm['last_memory']['leak_suspects']}")
@@ -3925,12 +4217,15 @@ def _fx_plane_gates(specs, ranks, pm) -> dict:
                               "median_bytes": statistics.median(x["bytes"]
                                                                 for x in timing[view]),
                               "n": len(timing[view])} for view in FX_PLANE_VIEWS},
-            "postmortem": {"oom_suspected": pm["oom_suspected"], "trend_samples": 8,
+            "postmortem": {"oom_suspected": pm["oom_suspected"], "trend_samples": KF_TREND_SAMPLES,
                            "leak_armed_s": max(0.0, pm["last_memory"]["wall_time_s"] - born3
                                                - planes[3]["warmup_s"]),
                            "rss_bytes": pm["last_memory"]["rss_bytes"],
                            "trend_bytes_per_s": pm["last_memory"]["trend_bytes_per_s"],
-                           "cpu_frac": pm["last_resources"]["cpu_frac"]}}
+                           "cpu_frac": pm["last_resources"]["cpu_frac"],
+                           # idle from its record to the kill, what it added to
+                           # the RSS by kind of mapping; its last snapshots' RSS
+                           "idle_s": idle, "idle_rss_kb": idle_rss_kb, "rss_tail": rss_tail}}
 
 
 def _ring_bytes_total(units, k: int, rank: int) -> int:
@@ -4506,7 +4801,7 @@ def checkpoint_phase(smi: str) -> None:
 
 ADAPTIVE_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_adaptive"
 ADAPTIVE_MAX_WORKERS = 4
-ADAPTIVE_STEPS = 40  # rank 0 may propose a grow every 10 steps: 1 -> 4 by step 30
+ADAPTIVE_STEPS = 30  # rank 0 may propose a grow every 10 steps: 1 -> 3 by step 20
 ADAPTIVE_DEADLINE_S = 300
 RESIZE_MIN = 5  # resizes bench_resize must time
 

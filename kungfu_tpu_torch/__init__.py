@@ -11,7 +11,18 @@ it with ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch as _torch
+from kungfu_tpu_torch import knobs as _knobs
+
+# Debug-mode lock-order detector: installed FIRST, before torch and any
+# module of the port creates a lock, so every threading.Lock/RLock below
+# this line is instrumented. Unset/falsy knob = lockwatch never imported,
+# threading untouched, zero overhead.
+if _knobs.get("KF_DEBUG_LOCKS"):
+    from kungfu_tpu_torch.devtools import lockwatch as _lockwatch
+
+    _lockwatch.install()
+
+import torch as _torch  # noqa: E402 - after the detector, which must come first
 
 __version__ = "0.1.0"
 

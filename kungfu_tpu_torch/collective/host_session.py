@@ -42,8 +42,10 @@ derive and adopt one plan.
 The async scheduler (`scheduler()`, `collective/scheduler.py`) lives
 as long as the session epoch. The re-plan rounds share each peer's
 measured compute fraction (the resource plane's `compute_frac`) through
-`measured_compute_frac`, the clamp on a plan's predicted gain. Not
-ported yet: the collective-order sentinel of KF_DEBUG_PROTOCOL.
+`measured_compute_frac`, the clamp on a plan's predicted gain. Under
+`KF_DEBUG_PROTOCOL` the collective-order sentinel
+(`devtools/protowatch.py`) wraps the session's entry points at bind and
+its scheduler's submit and flush.
 """
 
 from __future__ import annotations
@@ -86,9 +88,6 @@ from kungfu_tpu_torch.transport.message import ConnType, nbytes_of
 from kungfu_tpu_torch.utils import trace
 from kungfu_tpu_torch.utils.handoff import parallel_run as _par
 from kungfu_tpu_torch.utils.stall import stall_detect
-
-_protowatch_warned = [False]
-
 
 class _CollectiveScope:
     """Span (and, with metrics on, a latency-histogram observation)
@@ -284,10 +283,15 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
             self._ring_pos_g = self._ring_next_g = self._replans_ctr = None
             self._ring_role_g = self._wire_mode_g = None
         self._publish_ring_metrics()
-        if knobs.get("KF_DEBUG_PROTOCOL") and not _protowatch_warned[0]:
-            _protowatch_warned[0] = True
-            log.warn("KF_DEBUG_PROTOCOL is set, but the port has no collective-order "
-                     "sentinel yet; sessions run without it")
+        # collective-order sentinel: with the debug knob set, protowatch
+        # wraps this instance's public entry points at bind time. Unset =
+        # the module is never imported and the methods stay the plain
+        # class functions
+        self._protowatch = None
+        if knobs.get("KF_DEBUG_PROTOCOL"):
+            from kungfu_tpu_torch.devtools import protowatch
+
+            protowatch.attach(self)
 
     def _candidate(self, idx: int) -> List[st.StrategyPair]:
         if idx not in self._candidates_built:
@@ -369,6 +373,10 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
                     raise SchedulerClosed(
                         "session epoch closed — fetch the current session's scheduler")
                 self._scheduler = CollectiveScheduler(self)
+                if self._protowatch is not None:
+                    from kungfu_tpu_torch.devtools import protowatch
+
+                    protowatch.attach_scheduler(self._scheduler)
             return self._scheduler
 
     def close(self, timeout: Optional[float] = None) -> None:

@@ -333,6 +333,18 @@ _knob("KF_CONFIG_SHM_MIN_BYTES", str(256 << 10), _int,
       section=_SEC_TRANSPORT, kind="int")
 
 _SEC_DEBUG = "Debug instrumentation"
+_knob("KF_DEBUG_LOCKS", "", _bool,
+      "Truthy installs the runtime lock-order detector "
+      "(`devtools/lockwatch.py`): wraps `threading.Lock/RLock`, builds "
+      "the cross-thread acquisition graph, reports ABBA cycles and "
+      "long-held locks as `lock_order_violation`/`lock_long_held` audit "
+      "events + `kungfu_debug_lock_*` metrics. Off = wrapper not "
+      "installed, zero overhead.",
+      section=_SEC_DEBUG, kind="bool")
+_knob("KF_DEBUG_LOCKS_HELD_MS", "1000", _float,
+      "Lock hold time (ms) past which the detector reports a long-held "
+      "lock.",
+      section=_SEC_DEBUG, kind="float")
 _knob("KF_DEBUG_PROTOCOL", "", _bool,
       "Truthy installs the runtime collective-order sentinel "
       "(`devtools/protowatch.py`): wraps the session's collective entry "
@@ -369,6 +381,11 @@ _knob("KF_TEST_SLOW_EDGE", "", _str,
       "keep injecting. Use `KF_SHAPE_LINKS`. Local-only, never set in "
       "production.",
       section=_SEC_DEBUG, kind="str")
+_knob("KF_DEBUG_PROTOCOL_WINDOW", "512", _int,
+      "Collective-order sentinel: max recorded entries per check window. "
+      "Past the cap, entries fold into the rolling digest (divergence is "
+      "still detected, but the per-entry diff loses the folded prefix).",
+      section=_SEC_DEBUG, kind="int")
 
 _SEC_LOG = "Logging"
 _knob("KF_LOG_LEVEL", "", _stripped,

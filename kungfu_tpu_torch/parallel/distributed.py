@@ -177,7 +177,15 @@ def _join(spec: WorkerSpec, device: torch.device, backend: Optional[str], host: 
         store.set(f"kf_card/{spec.rank}", str(device.index))
         me = spec.self_id
         ranks = [r for r, p in enumerate(spec.peer_list) if p.colocated_with(me)]
-        check_card_sharing(backend, ranks, [int(store.get(f"kf_card/{r}")) for r in ranks])
+        cards = [int(store.get(f"kf_card/{r}")) for r in ranks]
+        # rank 0 serves the store: it waits until every rank has read the
+        # cards, or a refused rank 0 could close the store under a rank
+        # still reading, which then meets a closed connection, not the
+        # refusal
+        store.set(f"kf_card_read/{spec.rank}", "1")
+        if spec.rank == 0:
+            store.wait([f"kf_card_read/{r}" for r in range(spec.size)], RENDEZVOUS_TIMEOUT)
+        check_card_sharing(backend, ranks, cards)
     dist.init_process_group(backend, store=store, world_size=spec.size, rank=spec.rank)
 
 

@@ -57,3 +57,10 @@ def minimum_spanning_tree(weights: Sequence[Sequence[float]]) -> List[int]:
     if rc != 0:
         raise ValueError(f"kf_mst failed with code {rc}")
     return father.tolist()
+
+
+def uses_native() -> bool:
+    """Whether the MST runs in the host C++: always, since the port has no
+    numpy fallback (`base/_native.py` builds and loads the library, or
+    raises)."""
+    return _native.lib() is not None

@@ -392,6 +392,22 @@ class ZeroSGDOptimizer:
         return loss
 
 
+def with_no_grad_copy(p: torch.Tensor, arr) -> None:
+    """``p.copy_(arr)`` under no_grad, `arr` a tensor or a numpy array of
+    `p`'s elements (a 2-byte void array, as ml_dtypes' bfloat16, is read
+    as bfloat16, the JAX package's bf16 bridge inverted)."""
+    import numpy as np
+
+    if isinstance(arr, np.ndarray):
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            arr = torch.from_numpy(arr)
+    with torch.no_grad():
+        p.copy_(arr.view_as(p))
+
+
 class PairAveragingOptimizer:
     """AD-PSGD for torch (parity: PairAveragingOptimizer): apply the
     local step, then average parameters 0.5/0.5 with a random peer's

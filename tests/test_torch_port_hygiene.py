@@ -54,6 +54,10 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
                       "telemetry.cluster", "monitor",
                       # the resource and memory planes
                       "telemetry.resource", "telemetry.memory")
+# the tooling twins: benchmarks, info, the A/B benches, the debug tools
+TOOLING_MODULES = ("models.fake", "devtools", "devtools.lockwatch", "devtools.protowatch",
+                   "info", "info.__main__", "benchmarks", "benchmarks.__main__", "bench_hier",
+                   "bench_wire_q")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -80,9 +84,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kungfu_tpu_torch.models.resnet" in res["imported"]
     assert "kungfu_tpu_torch.bench" in res["imported"]
     for mod in ("graft_entry", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
-                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
+                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES + TOOLING_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in res["imported"]
-    assert len(res["imported"]) >= 28 + len(HOST_PLANE_MODULES)
+    assert len(res["imported"]) >= 28 + len(HOST_PLANE_MODULES) + len(TOOLING_MODULES)
 
 
 def test_every_module_of_the_slice_exists():
@@ -95,7 +99,7 @@ def test_every_module_of_the_slice_exists():
                 "examples.bert_ssgd", "optimizers", "models.resnet", "models.mlp",
                 "datasets", "datasets.idx", "examples.mnist_slp", "bench", "graft_entry",
                 "monitor", "monitor.noise_scale", "monitor.grad_variance", "ops.moe",
-                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES:
+                "parallel.pipeline", "parallel.sharded") + HOST_PLANE_MODULES + TOOLING_MODULES:
         assert f"kungfu_tpu_torch.{mod}" in names
     assert (REPO / "kungfu_tpu_torch" / "csrc" / "flash_attention.cu").is_file()
     for src in ("reduce.cpp", "mst.cpp", "io_pump.cpp", "pdeathsig.c"):
@@ -128,6 +132,7 @@ def _entry_points():
     from kungfu_tpu_torch.models.transformer import TransformerConfig, init_transformer
     from kungfu_tpu_torch.parallel.distributed import initialize_device_plane
     from kungfu_tpu_torch.parallel.mesh import make_mesh
+    from kungfu_tpu_torch.benchmarks.__main__ import bench_gns, bench_xla
 
     return {
         "resolve_device": lambda: kungfu_tpu_torch.resolve_device(),
@@ -152,6 +157,8 @@ def _entry_points():
         "multislice_train.main": lambda: multislice_train.main(["--steps", "1"]),
         "make_hier_train_step": lambda: make_hier_train_step(
             lambda b: b, torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)),
+        "benchmarks.bench_xla": lambda: bench_xla("tiny", 1),
+        "benchmarks.bench_gns": lambda: bench_gns(1),
     }
 
 
@@ -162,7 +169,8 @@ def _entry_points():
                                   "dryrun_multichip", "gns_init", "elastic_train.main",
                                   "Checkpointer", "adaptive_batch.main", "bench_resize.main",
                                   "cyclegan_pair.main", "multislice_train.main",
-                                  "make_hier_train_step"])
+                                  "make_hier_train_step", "benchmarks.bench_xla",
+                                  "benchmarks.bench_gns"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -205,6 +213,44 @@ def test_nccl_refuses_two_ranks_on_one_card(backend, cards, refused):
         return
     with pytest.raises(ValueError, match=r"ranks 4 and \d+ are both on card cuda:0"):
         check_card_sharing(backend, ranks, cards)
+
+
+def _refused_worker(rank, peers, delay, out_dir):
+    """One rank through the NCCL rendezvous on the CPU (the store and the
+    card check need no card), rank 1 descheduled for `delay` s before each
+    read of the store; writes what it raised."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.parallel import distributed as d
+
+    os.environ.update(KF_SELF_SPEC=peers[rank], KF_INIT_PEERS=",".join(peers),
+                      KF_DEVICE_SLOTS="0")
+    if rank == 1:
+        get = dist.TCPStore.get
+        dist.TCPStore.get = lambda self, key: (time.sleep(delay), get(self, key))[1]
+    spec = d.parse_worker_env()
+    try:
+        d._join(spec, torch.device("cuda", 0), "nccl", *d.rendezvous_address(spec))
+        got = "no error"
+    except Exception as e:  # noqa: BLE001 - the test reads what was raised
+        got = f"{type(e).__name__}: {e}"
+    (Path(out_dir) / f"rank{rank}").write_text(got)
+
+
+@pytest.mark.parametrize("delay", [0.0, 0.5])
+def test_a_slow_rank_still_sees_the_refusal(delay, tmp_path):
+    """Rank 0 serves the rendezvous store and refuses first: the store
+    stays up until rank 1 has read the cards, so a rank 1 that reads late
+    gets the same ValueError, not a closed connection."""
+    from kungfu_tpu_torch.parallel.distributed import spawn_world
+
+    spawn_world(_refused_worker, 2, 120, args=(delay, str(tmp_path)))
+    for rank in range(2):
+        got = (tmp_path / f"rank{rank}").read_text()
+        assert got.startswith("ValueError: ranks 0 and 1 are both on card cuda:0"), got
 
 
 def test_no_module_of_the_port_names_the_jax_package_ml_dtypes_or_jax():

@@ -398,6 +398,35 @@ def test_trend_and_forecast_match(i, limit):
     assert got[0] == got[1]
 
 
+@pytest.mark.parametrize("keep", [8, 12])
+@pytest.mark.parametrize("step_frac", [0.25, 0.5, 0.75])
+def test_one_page_step_in_a_flat_rss_reads_as_an_oom_at_a_sigkill(keep, step_frac):
+    """Why chip_smoke's forensics phase keeps rank 3's drop in RSS at its
+    record inside the trend window: a series flat but for one 4-page step
+    passes the fit's noise test as a rising trend, which oom_suspected
+    reads as an OOM at a SIGKILL, in both packages. A drop of 16 MB inside
+    the window turns the trend down."""
+    base, limit = 7_626_526_720, 108_447_924_224
+    flat = [base + (16384 if i >= int(keep * step_frac) else 0) for i in range(keep)]
+    dropped = [base + 16_506_880] * 3 + flat[3:]
+    got = []
+    for mod, fl in ((memory, flight), (rmemory, rflight)):
+        trends = []
+        for series in (flat, dropped):
+            plane = mod.MemoryPlane(interval=0.1, windows=3, warmup=0, trend_keep=keep,
+                                    rss_fn=lambda: None, limit_fn=lambda: limit,
+                                    majflt_fn=lambda: None, steps_fn=lambda: None)
+            plane._trend.extend((0.5 * i, r) for i, r in enumerate(series))
+            trend = plane.trend_bytes_per_s()
+            doc = {"rss_bytes": series[-1], "limit_bytes": limit, "trend_bytes_per_s": trend}
+            trends.append((trend, fl.oom_suspected(doc, -9), fl.oom_suspected(doc, -15)))
+        got.append(trends)
+    (rising, oom, term), (falling, oom_dropped, _) = got[0]
+    assert got[0] == got[1]
+    assert rising > 0 and oom is True and term is False
+    assert falling < 0 and oom_dropped is False
+
+
 @pytest.mark.parametrize("used", [0.0, 0.5, 0.84, 0.85, 0.86, 0.999, 1.0, 1.2])
 def test_grow_ok_matches_the_reference(used, clock):
     limit = 10 << 30

@@ -101,6 +101,8 @@ def test_registry_and_doc():
         "KF_CONFIG_GROUP_FUSE_MIN", "KF_CONFIG_GROUP_BUCKET_BYTES", "KF_CONFIG_ASYNC",
         "KF_CONFIG_ZERO", "KF_CONFIG_REPLAN", "KF_REPLAN_DEMOTE_PATIENCE", "KF_CONFIG_SHM",
         "KF_CONFIG_SHM_CAPACITY", "KF_CONFIG_SHM_MIN_BYTES", "KF_DEBUG_PROTOCOL",
+        # the debug tools: the lock-order detector and the sentinel's window
+        "KF_DEBUG_LOCKS", "KF_DEBUG_LOCKS_HELD_MS", "KF_DEBUG_PROTOCOL_WINDOW",
         # the async scheduler's
         "KF_CONFIG_ASYNC_QUEUE",
         # the runners' (kfrun, monitored, standby)
@@ -124,7 +126,7 @@ def test_registry_and_doc():
         "KF_RESOURCE_INTERVAL", "KF_RESOURCE_SAMPLE_HZ", "KF_RESOURCE_KEEP",
         "KF_MEMORY_INTERVAL", "KF_MEMORY_WINDOWS", "KF_MEMORY_WARMUP", "KF_MEMORY_TREND",
         "KF_MEMORY_OOM_MARGIN", "KF_MEMORY_LIMIT"}
-    assert len(knobs.names()) == 77
+    assert len(knobs.names()) == 80
     doc = knobs.render_doc()
     theirs = set(_untagged(rknobs.render_doc()).splitlines())
     rows = [line for line in doc.splitlines() if line.startswith("| `KF_")]
