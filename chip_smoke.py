@@ -8,6 +8,11 @@ Phases, each printing one JSON line:
   device   card name and power limit (`nvidia-smi`), torch and CUDA versions;
   build    the kernels of csrc/ compiled by nvcc for sm_90a, one nvcc per
            source, all at once;
+  analyzer the port's static analyzer, `python -m
+           kungfu_tpu_torch.devtools.check --no-cache`, in a child process
+           started before the build and reaped after it: its rules, the
+           files it scanned, its findings (the gate: none, exit 0) and its
+           seconds, beside the card's name and power limit;
   occupancy  each kernel's dynamic shared memory, active blocks per SM,
            registers and spilled bytes per thread (CUDA runtime), hd 64/128;
   kernel   each flash-attention kernel (forward with O and LSE, dQ with
@@ -279,6 +284,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -359,6 +365,10 @@ KERNELS = {
     "flash_dq": ("dq", 368, "_dq_kernel"),
     "flash_dkv": ("dkv", 386, "_dkv_kernel"),
 }
+
+
+ANALYZER_DEADLINE_S = 120
+ANALYZER_WAIT_S = 10.0  # the most the analyzer may add to the run's wall time
 
 
 _LAST_EMIT = [time.perf_counter()]
@@ -5213,6 +5223,57 @@ def hier_phase(smi: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+def analyzer_start() -> dict:
+    """Start the port's devtools gate in a child process; a thread reaps
+    it and keeps its output and the seconds it took."""
+    run = {"t0": time.perf_counter()}
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "kungfu_tpu_torch.devtools.check", "--no-cache"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def reap():
+        try:
+            run["out"], run["err"] = run["proc"].communicate(timeout=ANALYZER_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            run["out"], run["err"] = run["proc"].communicate()
+        run["seconds"] = time.perf_counter() - run["t0"]
+
+    run["reaper"] = threading.Thread(target=reap, daemon=True)
+    run["reaper"].start()
+    return run
+
+
+def analyzer_phase(smi: str, run: dict) -> None:
+    """Wait for the gate started by analyzer_start and hold it to its
+    contract: every section clean, exit 0; and the wait it adds to the
+    run after the build (`waited_s`) to ANALYZER_WAIT_S."""
+    from kungfu_tpu_torch.devtools.kfcheck import core
+
+    t = time.perf_counter()
+    run["reaper"].join(ANALYZER_DEADLINE_S + 10)
+    waited = time.perf_counter() - t
+    check(not run["reaper"].is_alive() and "seconds" in run, "the analyzer ended")
+    out, rc = run["out"], run["proc"].returncode
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    findings = None  # no summary line: the gate died before it
+    if last == "check: clean":
+        findings = 0
+    elif last.startswith("check: "):
+        findings = int(last.split()[1])
+    core._ensure_rules_loaded()
+    pkg = Path(__file__).resolve().parent / "kungfu_tpu_torch"
+    emit("analyzer", nvidia_smi=smi, rules=len(core.known_rule_ids()),
+         files=sum(1 for _ in core._iter_py_files(str(pkg))), findings=findings,
+         exit_code=rc, analyzer_seconds=run["seconds"], waited_s=waited,
+         sections=[line for line in out.splitlines() if line.startswith("[")])
+    check(rc == 0 and findings == 0,
+          f"the port's analyzer is clean (exit {rc}):\n{out}{run['err']}")
+    check(waited <= ANALYZER_WAIT_S,
+          f"the analyzer held the run {waited:.1f} s past the build")
+
+
 def main() -> int:
     import torch
 
@@ -5234,11 +5295,15 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    analyzer = analyzer_start()
     libs = _build.build_all(["flash_attention"])
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v) for k, v in libs.items()})
 
     phases = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
+    analyzer_phase(smi, analyzer)
+    phases["analyzer"] = time.perf_counter() - t
 
     def run(name, fn, *args):
         t = time.perf_counter()

@@ -123,8 +123,13 @@ def bench_settings(env=None, wire_min_bytes: bool = False):
 
 _MISSING = object()
 
+# the default bound on a lockstep leg's threads, and on each barrier
+# wait inside one: a peer thread that dies breaks the barrier for the
+# rest instead of parking them forever
+JOIN_S = 600
 
-def _run_on_all(fns, join=600):
+
+def _run_on_all(fns, join=JOIN_S):
     errs = []
 
     def wrap(fn):
@@ -133,7 +138,8 @@ def _run_on_all(fns, join=600):
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errs.append(e)
 
-    ts = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
+    ts = [threading.Thread(target=wrap, args=(fn,), daemon=True)
+          for fn in fns]
     for t in ts:
         t.start()
     for t in ts:
@@ -170,12 +176,13 @@ def _timed_block(sessions, tag, rounds, n):
     """`rounds` lockstep allreduces; per-round wall time = barrier-to-
     barrier (the max across peers), recorded by rank 0."""
     k = len(sessions)
+    budget = join_budget(k)
     bar = threading.Barrier(k)
     times = []
 
     def run(r, s):
         for i in range(rounds):
-            bar.wait()
+            bar.wait(budget)
             # a demoted peer's contribution is zero-weighted out of the
             # reduction (it still receives the result via broadcast)
             want = sum(j + 1 for j in range(k) if j not in s.demoted_peers())
@@ -186,12 +193,12 @@ def _timed_block(sessions, tag, rounds, n):
                 send=x, recv=out, op=ReduceOp.SUM, name=f"{tag}:{i}",
             ))
             assert float(out[0]) == want, "walk result wrong"
-            bar.wait()
+            bar.wait(budget)
             if r == 0:
                 times.append(time.perf_counter() - t0)
 
     _run_on_all([lambda r=r, s=s: run(r, s) for r, s in enumerate(sessions)],
-                join=join_budget(k))
+                join=budget)
     return times
 
 

@@ -62,7 +62,12 @@ from kungfu_tpu_torch.base.ops import ReduceOp
 from kungfu_tpu_torch.base.strategy import Strategy
 from kungfu_tpu_torch.base.workspace import Workspace
 from kungfu_tpu_torch.bench_hier import ENV as _HIER_ENV
-from kungfu_tpu_torch.bench_hier import _run_on_all, _start_cluster, bench_settings
+from kungfu_tpu_torch.bench_hier import (
+    JOIN_S,
+    _run_on_all,
+    _start_cluster,
+    bench_settings,
+)
 from kungfu_tpu_torch.collective.host_session import HostSession
 from kungfu_tpu_torch.telemetry import metrics as tmetrics
 
@@ -149,18 +154,18 @@ def _timed_block_q(sessions, tag, rounds, n, tol_rel):
 
     def run(r, s):
         for i in range(rounds):
-            bar.wait()
+            bar.wait(JOIN_S)
             t0 = time.perf_counter()
             x = torch.full((n,), float(r + 1), dtype=torch.float32)
             out = torch.empty_like(x)
             s.all_reduce(Workspace(
                 send=x, recv=out, op=ReduceOp.SUM, name=f"grad:{tag}",
             ))
-            bar.wait()
+            bar.wait(JOIN_S)
             outs[r] = out
             assert abs(float(out[0]) - want) <= tol_rel * want, \
                 (tag, i, float(out[0]), want)
-            bar.wait()
+            bar.wait(JOIN_S)
             if r == 0:
                 times.append(time.perf_counter() - t0)
                 assert all(torch.equal(o, outs[0]) for o in outs[1:]), \
@@ -292,10 +297,10 @@ def _k8_zero_weight_ab(k, hosts, n, rounds, blocks, min_speedup):
 
             def run(r):
                 for i in range(rounds):
-                    bar.wait()
+                    bar.wait(JOIN_S)
                     t0 = time.perf_counter()
                     zss[r].step([grads[r].clone()])
-                    bar.wait()
+                    bar.wait(JOIN_S)
                     if r == 0:
                         times.append(time.perf_counter() - t0)
 

@@ -70,8 +70,9 @@ def launch_multiprocess(f: Callable[[int], None], np_: int) -> None:
     for p in procs:
         p.start()
     for p in procs:
-        # the workers are the foreground job: the launcher blocks for
-        # their whole training run, and Ctrl-C interrupts the join
+        # kfcheck: disable=KF302 — the workers ARE the foreground job; the
+        # launcher's contract is to block for their whole (unbounded)
+        # training run, and Ctrl-C interrupts the join
         p.join()
     bad = [(i, p.exitcode) for i, p in enumerate(procs) if p.exitcode != 0]
     if bad:
@@ -102,7 +103,7 @@ def _rank(rank: int) -> int:
         from kungfu_tpu_torch import api
 
         return api.current_rank()
-    # heartbeats are best-effort: outside a cluster api.current_rank()
-    # has no peer and rank 0 is the contract
+    # kfcheck: disable=KF400 — heartbeats are best-effort: outside a
+    # cluster api.current_rank() has no peer and rank 0 is the contract
     except Exception:  # noqa: BLE001
         return 0

@@ -353,7 +353,9 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
                             "fleet-wide",
                             100.0 * float(sig.get("memory/headroom_frac", 0)),
                         )
-                except Exception:  # noqa: BLE001 - an advisory never blocks the resolution
+                # kfcheck: disable=KF400 — advisory log only; a failed
+                # headroom read must never block auto resolution
+                except Exception:  # noqa: BLE001
                     pass
             return on
         return False
@@ -673,8 +675,10 @@ class HostSession(WalkEngine, WireCodec, GroupFusion):
             from kungfu_tpu_torch.telemetry import resource as _tres
 
             mine = max(0.0, min(1.0, _tres.get_plane().compute_frac()))
-        # an unmeasurable local floor degrades to 0.0 (no clamp), never
-        # kills the round: every peer still runs the all-gather below
+        # kfcheck: disable=KF400 — an unmeasurable local floor must
+        # degrade to 0.0 (no clamp), never kill the re-plan round; every
+        # peer still runs the same all_gather below so the protocol
+        # stays symmetric
         except Exception:  # noqa: BLE001
             pass
         send = torch.tensor([mine], dtype=torch.float32)

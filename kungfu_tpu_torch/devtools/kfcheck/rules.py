@@ -1,0 +1,1803 @@
+"""kfcheck rules: the project-specific invariants, one family per
+section (the reference's docs/devtools.md describes them for
+operators).
+
+Everything here is AST-shaped, not grep-shaped: docstrings and comments
+can mention ``print()`` or ``KF_FOO`` freely, only real call/literal
+nodes count. Rules err toward reporting — a false positive costs one
+justified suppression line, a false negative costs a 3am deadlock.
+
+Static limits, stated rather than hidden:
+
+- KF101 resolves environ keys that are string literals, module-level
+  constants, or ``module.CONST`` attributes of analyzed modules; a key
+  computed at runtime is invisible to it (KF100 still catches the
+  knob-name literal wherever it is spelled).
+- KF200/KF201 reason about ``with <lock>:`` blocks where the context
+  expression *names* a lock (its last segment contains ``lock``/
+  ``mutex``/``cond``); a lock hidden behind an arbitrary name is
+  invisible. The runtime detector (devtools/lockwatch.py) has no such
+  blind spot — the two layers are complementary.
+- KF300 accepts a thread as "provably joined" when the same module
+  joins a receiver of the same name with a bounded timeout; it does not
+  do interprocedural dataflow.
+- KF700 sees names the call site *spells*: literals, module constants,
+  constant-folded concatenations and f-strings without interpolation
+  are findings; any interpolated f-string passes, even one whose
+  interpolated parts are round-invariant. The runtime sentinel
+  (devtools/protowatch.py) covers that blind spot — like KF2xx and
+  lockwatch, the two layers are complementary.
+- KF702 is the *lexical shadow* of the registration-divergence runtime
+  error: it sees rank conditionals whose test names rank/identity
+  attributes and collective calls spelled as method calls in either
+  branch. Point-to-point traffic (client.send / endpoint.recv) is
+  deliberately out of scope — send/recv asymmetry under a rank guard is
+  how rooted walks are built.
+- KF703 recognizes caller-owned buffers by the module's own naming
+  conventions (`.recv` workspace fields, the segmented walk's `acc`
+  alias, loop variables iterating `.params`) and abort scopes by name
+  (`cancel`/`abort`/`_abort`); a buffer aliased to an arbitrary name is
+  invisible.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import re
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+
+from kungfu_tpu_torch.devtools.kfcheck.core import (
+    DOCS_DIR,
+    KNOB_RE,
+    FileContext,
+    Finding,
+    Project,
+    _attr_chain,
+    rule,
+)
+
+# ---------------------------------------------------------------------
+# shared AST helpers (chain resolution lives in core — the fact
+# extractor and the rules must agree on what an expression names)
+# ---------------------------------------------------------------------
+
+
+def _last_segment(node: ast.AST) -> Optional[str]:
+    if isinstance(node, ast.Attribute):
+        return node.attr
+    if isinstance(node, ast.Name):
+        return node.id
+    return None
+
+
+def _kw(call: ast.Call, name: str) -> Optional[ast.expr]:
+    for k in call.keywords:
+        if k.arg == name:
+            return k.value
+    return None
+
+
+def _is_true(node: Optional[ast.expr]) -> bool:
+    return isinstance(node, ast.Constant) and node.value is True
+
+
+def _is_false(node: Optional[ast.expr]) -> bool:
+    return isinstance(node, ast.Constant) and node.value is False
+
+
+def _has_timeout(call: ast.Call, *, positional_at: Optional[int] = None) -> bool:
+    if _kw(call, "timeout") is not None:
+        return True
+    if positional_at is not None and len(call.args) > positional_at:
+        return True
+    return False
+
+
+def _module_basename(relpath: str) -> str:
+    """"kungfu_tpu_torch/telemetry/flight.py" -> "flight"; packages resolve to
+    their directory name so `from x import pkg` attribute reads work."""
+    base = os.path.basename(relpath)
+    if base == "__init__.py":
+        return os.path.basename(os.path.dirname(relpath))
+    return base[:-3] if base.endswith(".py") else base
+
+
+# ---------------------------------------------------------------------
+# KF1xx — config registry
+# ---------------------------------------------------------------------
+
+# the registry itself is the only place allowed to spell environ
+# plumbing for knobs
+_REGISTRY_FILE = "kungfu_tpu_torch/knobs.py"
+
+
+def _declared_knobs() -> Set[str]:
+    from kungfu_tpu_torch import knobs
+
+    return set(knobs.names())
+
+
+def _cross_constants(project: Project) -> Dict[str, Dict[str, str]]:
+    """module-basename -> {CONST: value} for `flight.DIR_ENV`-style
+    cross-module constant resolution (from the per-file facts)."""
+    cross: Dict[str, Dict[str, str]] = {}
+    for ctx in project.files:
+        cross.setdefault(_module_basename(ctx.relpath), {}).update(
+            ctx.str_constants
+        )
+    return cross
+
+
+def _resolve_desc(
+    desc: dict,
+    ctx: FileContext,
+    cross: Dict[str, Dict[str, str]],
+) -> Optional[str]:
+    """Constant value of a cached name/key descriptor (see
+    core._name_desc), or None when it carries runtime content."""
+    t = desc.get("t")
+    if t == "const":
+        return desc["v"]
+    if t == "name":
+        if desc["v"] in ctx.str_constants:
+            return ctx.str_constants[desc["v"]]
+        imp = ctx.imported_names.get(desc["v"])
+        if imp is not None:
+            return cross.get(imp[0], {}).get(imp[1])
+        return None
+    if t == "attr":
+        return cross.get(desc["base"], {}).get(desc["attr"])
+    return None
+
+
+@rule(
+    "KF100",
+    "undeclared-knob",
+    "every KF_* env literal must be declared in kungfu_tpu_torch/knobs.py "
+    "(name, default, parser, doc) — scattered ad-hoc knobs are how 48 "
+    "of them went undocumented",
+    scope="project",
+)
+def check_knob_declared(project: Project) -> List[Finding]:
+    declared = _declared_knobs()
+    out = []
+    for ctx in project.files:
+        if ctx.relpath == _REGISTRY_FILE:
+            continue
+        for lineno, literal in ctx.knob_literals:
+            if literal not in declared:
+                out.append(Finding(
+                    "KF100", ctx.relpath, lineno,
+                    f"KF_* literal {literal!r} is not declared in the "
+                    "knob registry (kungfu_tpu_torch/knobs.py) — declare it "
+                    "with a default, parser and doc string",
+                ))
+    return out
+
+
+@rule(
+    "KF101",
+    "env-read-bypasses-registry",
+    "KF_* environment variables are read only through kungfu_tpu_torch.knobs "
+    "(get/raw/is_set) — direct os.environ reads re-invent parsing and "
+    "default semantics per call site",
+    scope="project",
+)
+def check_env_reads(project: Project) -> List[Finding]:
+    cross = _cross_constants(project)
+    out = []
+    for ctx in project.files:
+        if ctx.relpath == _REGISTRY_FILE:
+            continue
+        for lineno, desc in ctx.env_reads:
+            resolved = _resolve_desc(desc, ctx, cross)
+            if resolved is not None and resolved.startswith("KF_"):
+                out.append(Finding(
+                    "KF101", ctx.relpath, lineno,
+                    f"direct environment read of {resolved!r} — go "
+                    "through kungfu_tpu_torch.knobs (get/raw/is_set) so "
+                    "parsing, defaults and docs stay single-sourced",
+                ))
+    return out
+
+
+@rule(
+    "KF102",
+    "knobs-doc-stale",
+    "kungfu_tpu_torch/docs/knobs.md is generated from the registry and must "
+    "match it byte-for-byte (regenerate: python -m "
+    "kungfu_tpu_torch.devtools.kfcheck --write-knobs-doc)",
+    scope="project",
+)
+def check_knobs_doc(project: Project) -> List[Finding]:
+    from kungfu_tpu_torch import knobs
+
+    doc_path = os.path.join(project.repo_root, DOCS_DIR, "knobs.md")
+    rel = "kungfu_tpu_torch/docs/knobs.md"
+    if not os.path.exists(doc_path):
+        return [Finding(
+            "KF102", rel, 1,
+            "kungfu_tpu_torch/docs/knobs.md does not exist — generate it "
+            "with `python -m kungfu_tpu_torch.devtools.kfcheck "
+            "--write-knobs-doc`",
+        )]
+    with open(doc_path, encoding="utf-8") as f:
+        on_disk = f.read()
+    want = knobs.render_doc()
+    if on_disk != want:
+        # first differing line makes the finding actionable
+        lineno = 1
+        for i, (a, b) in enumerate(
+            zip(on_disk.splitlines(), want.splitlines()), start=1
+        ):
+            if a != b:
+                lineno = i
+                break
+        else:
+            lineno = min(len(on_disk.splitlines()),
+                         len(want.splitlines())) + 1
+        return [Finding(
+            "KF102", rel, lineno,
+            "kungfu_tpu_torch/docs/knobs.md is stale vs the registry — "
+            "regenerate with `python -m kungfu_tpu_torch.devtools.kfcheck "
+            "--write-knobs-doc`",
+        )]
+    return []
+
+
+# ---------------------------------------------------------------------
+# KF2xx — lock discipline
+# ---------------------------------------------------------------------
+
+_LOCKISH = re.compile(r"lock|mutex|(^|_)cond(ition)?$", re.IGNORECASE)
+
+
+def _lock_name(expr: ast.expr) -> Optional[str]:
+    """Last segment of a with-context expression when it names a lock
+    ("self._lock" -> "_lock"), else None."""
+    seg = _last_segment(expr)
+    if seg is not None and _LOCKISH.search(seg):
+        return seg
+    return None
+
+
+def _blocking_reason(call: ast.Call) -> Optional[str]:
+    """A short human label when `call` can block indefinitely (or for a
+    humanly-long time), else None."""
+    chain = _attr_chain(call.func)
+    if chain in ("time.sleep", "sleep"):
+        return "time.sleep"
+    if chain and chain.startswith("subprocess."):
+        return chain
+    if chain in ("urllib.request.urlopen", "request.urlopen", "urlopen"):
+        return "urlopen"
+    if not isinstance(call.func, ast.Attribute):
+        return None
+    attr = call.func.attr
+    if attr == "wait" and not call.args and not _has_timeout(call):
+        return ".wait() without timeout"
+    if attr == "wait_for" and not _has_timeout(call, positional_at=1):
+        return ".wait_for() without timeout"
+    if attr == "join" and not call.args and not _has_timeout(call):
+        return ".join() without timeout"
+    if attr == "get" and not call.args and not call.keywords:
+        # zero-arg .get() is a blocking queue get (dict.get needs a key)
+        return ".get() without timeout"
+    if attr in ("recv", "recv_into", "accept", "connect", "sendall"):
+        return f"socket .{attr}()"
+    return None
+
+
+class _LockWalker(ast.NodeVisitor):
+    """Tracks the stack of with-held locks while walking one file;
+    collects KF200 (blocking under a lock) and KF201 (hierarchy)
+    findings. Nested function bodies are walked with a FRESH stack:
+    a closure defined under a lock does not run under it."""
+
+    def __init__(self, ctx: FileContext, order: Sequence[str]):
+        self.ctx = ctx
+        self.order = list(order)
+        self.stack: List[Tuple[str, int]] = []  # (lock name, lineno)
+        self.findings: List[Finding] = []
+
+    # -- helpers
+
+    def _rank(self, name: str) -> Optional[int]:
+        try:
+            return self.order.index(name)
+        except ValueError:
+            return None
+
+    def _enter_lock(self, name: str, lineno: int) -> None:
+        if self.stack:
+            outer, outer_line = self.stack[-1]
+            if not self.order:
+                self.findings.append(Finding(
+                    "KF201", self.ctx.relpath, lineno,
+                    f"nested lock acquisition {outer!r} (line "
+                    f"{outer_line}) -> {name!r} but the module declares "
+                    "no lock hierarchy — add `_KF_LOCK_ORDER = "
+                    f"({outer!r}, {name!r})` at module level",
+                ))
+            else:
+                ro, ri = self._rank(outer), self._rank(name)
+                if ri is None:
+                    self.findings.append(Finding(
+                        "KF201", self.ctx.relpath, lineno,
+                        f"lock {name!r} acquired under {outer!r} but is "
+                        "not in the module's _KF_LOCK_ORDER declaration",
+                    ))
+                elif ro is None:
+                    self.findings.append(Finding(
+                        "KF201", self.ctx.relpath, lineno,
+                        f"lock {outer!r} (held at line {outer_line}) is "
+                        "not in the module's _KF_LOCK_ORDER declaration",
+                    ))
+                elif ri <= ro:
+                    self.findings.append(Finding(
+                        "KF201", self.ctx.relpath, lineno,
+                        f"lock order violation: {name!r} acquired while "
+                        f"holding {outer!r} (line {outer_line}), but "
+                        "_KF_LOCK_ORDER declares "
+                        f"{name!r} <= {outer!r}",
+                    ))
+        self.stack.append((name, lineno))
+
+    # -- visitors
+
+    def _fresh(self, node: ast.AST) -> None:
+        saved, self.stack = self.stack, []
+        self.generic_visit(node)
+        self.stack = saved
+
+    def visit_FunctionDef(self, node: ast.FunctionDef) -> None:
+        self._fresh(node)
+
+    def visit_AsyncFunctionDef(self, node) -> None:
+        self._fresh(node)
+
+    def visit_Lambda(self, node: ast.Lambda) -> None:
+        self._fresh(node)
+
+    def visit_With(self, node: ast.With) -> None:
+        entered = 0
+        for item in node.items:
+            name = _lock_name(item.context_expr)
+            if name is not None:
+                self._enter_lock(name, node.lineno)
+                entered += 1
+        for stmt in node.body:
+            self.visit(stmt)
+        for _ in range(entered):
+            self.stack.pop()
+
+    visit_AsyncWith = visit_With
+
+    def visit_Call(self, node: ast.Call) -> None:
+        if self.stack:
+            reason = _blocking_reason(node)
+            if reason is not None and not self._is_cond_wait_idiom(node):
+                held = self.stack[-1][0]
+                self.findings.append(Finding(
+                    "KF200", self.ctx.relpath, node.lineno,
+                    f"blocking call ({reason}) while holding lock "
+                    f"{held!r} — move the blocking work outside the "
+                    "critical section or bound it",
+                ))
+        self.generic_visit(node)
+
+    def _is_cond_wait_idiom(self, node: ast.Call) -> bool:
+        """`with cond: cond.wait[_for](...)` — Condition.wait RELEASES
+        the held lock for the duration, so it is not blocking-under-lock
+        (KF301 still judges its unboundedness)."""
+        if not (isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("wait", "wait_for")):
+            return False
+        receiver = _last_segment(node.func.value)
+        return receiver is not None and receiver == self.stack[-1][0]
+
+
+def _declared_lock_order(ctx: FileContext) -> List[str]:
+    if ctx.tree is None:
+        return []
+    for node in ctx.tree.body:
+        if (
+            isinstance(node, ast.Assign)
+            and len(node.targets) == 1
+            and isinstance(node.targets[0], ast.Name)
+            and node.targets[0].id == "_KF_LOCK_ORDER"
+            and isinstance(node.value, (ast.Tuple, ast.List))
+        ):
+            return [
+                e.value for e in node.value.elts
+                if isinstance(e, ast.Constant) and isinstance(e.value, str)
+            ]
+    return []
+
+
+def _lock_walk(ctx: FileContext) -> List[Finding]:
+    """KF200's and KF201's findings of one file, from one walk of its
+    tree shared by both rules."""
+    found = getattr(ctx, "_lock_findings", None)
+    if found is None:
+        w = _LockWalker(ctx, _declared_lock_order(ctx))
+        w.visit(ctx.tree)
+        found = ctx._lock_findings = w.findings
+    return found
+
+
+@rule(
+    "KF200",
+    "blocking-under-lock",
+    "no call that can block indefinitely (sleep, subprocess, socket "
+    "recv/send, unbounded wait/join/get) while holding a lock — a "
+    "stalled peer must never extend a critical section",
+)
+def check_blocking_under_lock(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    return [f for f in _lock_walk(ctx) if f.rule == "KF200"]
+
+
+@rule(
+    "KF201",
+    "lock-hierarchy",
+    "modules that nest lock acquisitions must declare the order as "
+    "`_KF_LOCK_ORDER = (outer, ..., inner)` and every nesting must "
+    "respect it — ABBA deadlocks are ordering bugs, caught here at "
+    "review time and by lockwatch at runtime",
+)
+def check_lock_hierarchy(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    return [f for f in _lock_walk(ctx) if f.rule == "KF201"]
+
+
+# ---------------------------------------------------------------------
+# KF3xx — thread lifecycle
+# ---------------------------------------------------------------------
+
+
+def _is_thread_ctor(call: ast.Call) -> bool:
+    chain = _attr_chain(call.func)
+    return chain in ("threading.Thread", "Thread")
+
+
+@rule(
+    "KF300",
+    "thread-lifecycle",
+    "every threading.Thread is daemon=True or joined with a bounded "
+    "timeout — a forgotten non-daemon thread turns every crash into a "
+    "hang at interpreter exit",
+)
+def check_thread_lifecycle(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    # receivers that get `X.daemon = True` or a bounded `X.join(...)`
+    # anywhere in the module (same-name matching, not dataflow)
+    daemoned: Set[str] = set()
+    bounded_join: Set[str] = set()
+    assigned_to: Dict[int, str] = {}  # id(call node) -> receiver segment
+    for node in ctx.walk():
+        if isinstance(node, ast.Assign):
+            for tgt in node.targets:
+                if (
+                    isinstance(tgt, ast.Attribute)
+                    and tgt.attr == "daemon"
+                    and _is_true(node.value)
+                ):
+                    seg = _last_segment(tgt.value)
+                    if seg:
+                        daemoned.add(seg)
+                seg = _last_segment(tgt)
+                if seg and isinstance(node.value, ast.Call):
+                    assigned_to[id(node.value)] = seg
+        elif isinstance(node, ast.Call):
+            if (
+                isinstance(node.func, ast.Attribute)
+                and node.func.attr == "join"
+                and (node.args or _kw(node, "timeout") is not None)
+            ):
+                seg = _last_segment(node.func.value)
+                if seg:
+                    bounded_join.add(seg)
+    out = []
+    for node in ctx.walk():
+        if not (isinstance(node, ast.Call) and _is_thread_ctor(node)):
+            continue
+        if _is_true(_kw(node, "daemon")):
+            continue
+        seg = assigned_to.get(id(node))
+        if seg is not None and (seg in daemoned or seg in bounded_join):
+            continue
+        out.append(Finding(
+            "KF300", ctx.relpath, node.lineno,
+            "Thread created without daemon=True and without a bounded "
+            "join in this module — pass daemon=True or join it with a "
+            "timeout",
+        ))
+    return out
+
+
+@rule(
+    "KF301",
+    "unbounded-wait",
+    "every Event.wait/Condition.wait(_for)/Popen.wait is bounded — an "
+    "unbounded wait on a signal that never comes is a silent hang; "
+    "abort-aware waits get a justified suppression",
+)
+def check_unbounded_wait(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    out = []
+    for node in ctx.walk():
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        attr = node.func.attr
+        if attr == "wait" and not node.args and not _has_timeout(node):
+            out.append(Finding(
+                "KF301", ctx.relpath, node.lineno,
+                "unbounded .wait() — pass a timeout (retry in a loop if "
+                "the wait is legitimate) so a lost signal cannot hang "
+                "this thread forever",
+            ))
+        elif attr == "wait_for" and not _has_timeout(node, positional_at=1):
+            out.append(Finding(
+                "KF301", ctx.relpath, node.lineno,
+                "unbounded .wait_for() — pass a timeout so a lost "
+                "notify cannot hang this thread forever",
+            ))
+    return out
+
+
+@rule(
+    "KF302",
+    "unbounded-join",
+    "every .join() is bounded — joining a thread/process that never "
+    "exits hangs shutdown paths; join with a timeout and handle the "
+    "still-alive case",
+)
+def check_unbounded_join(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    out = []
+    for node in ctx.walk():
+        if (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "join"
+            and not node.args
+            and not node.keywords
+        ):
+            out.append(Finding(
+                "KF302", ctx.relpath, node.lineno,
+                "unbounded .join() — pass a timeout and handle the "
+                "still-running case (log, escalate, or abandon as "
+                "daemon)",
+            ))
+    return out
+
+
+# the modules that run background stages against a session epoch: their
+# threads MUST register with the abort protocol (a declared joinable
+# set that close() joins), or a forgotten stage outlives the epoch and
+# keeps walking against a dead transport token. zero.py is in the set:
+# its settled-gate polling and gather-stage work run ON the scheduler's
+# registered threads, and a future helper thread
+# must not slip in unregistered.
+_KF303_MODULES = (
+    "kungfu_tpu_torch/collective/scheduler.py",
+    "kungfu_tpu_torch/collective/pipeline.py",
+    "kungfu_tpu_torch/collective/zero.py",
+)
+
+_KF303_FACTORY = "_spawn_registered"
+
+
+def _declared_joinable_threads(ctx: FileContext) -> Optional[List[str]]:
+    """The module-level `_KF_JOINABLE_THREADS` tuple of thread names, or
+    None when the module declares none."""
+    if ctx.tree is None:
+        return None
+    for node in ctx.tree.body:
+        if (
+            isinstance(node, ast.Assign)
+            and len(node.targets) == 1
+            and isinstance(node.targets[0], ast.Name)
+            and node.targets[0].id == "_KF_JOINABLE_THREADS"
+            and isinstance(node.value, (ast.Tuple, ast.List))
+        ):
+            return [
+                e.value for e in node.value.elts
+                if isinstance(e, ast.Constant) and isinstance(e.value, str)
+            ]
+    return None
+
+
+class _ThreadSiteWalker(ast.NodeVisitor):
+    """Collects (enclosing function name, Thread-ctor node) pairs and
+    every `*._spawn_registered(...)` call in one file."""
+
+    def __init__(self):
+        self.func_stack: List[str] = []
+        self.ctors: List[Tuple[Optional[str], ast.Call]] = []
+        self.spawns: List[ast.Call] = []
+
+    def visit_FunctionDef(self, node: ast.FunctionDef) -> None:
+        self.func_stack.append(node.name)
+        self.generic_visit(node)
+        self.func_stack.pop()
+
+    visit_AsyncFunctionDef = visit_FunctionDef
+
+    def visit_Call(self, node: ast.Call) -> None:
+        if _is_thread_ctor(node):
+            enclosing = self.func_stack[-1] if self.func_stack else None
+            self.ctors.append((enclosing, node))
+        if _last_segment(node.func) == _KF303_FACTORY:
+            self.spawns.append(node)
+        self.generic_visit(node)
+
+
+@rule(
+    "KF303",
+    "unregistered-scheduler-thread",
+    "threads started by the collective scheduler/pipeline modules must "
+    "register with the abort protocol: constructed only inside the "
+    "_spawn_registered factory, spawned with a literal name declared in "
+    "the module-level _KF_JOINABLE_THREADS joinable-set (close() joins "
+    "exactly that set), so a future stage cannot silently outlive a "
+    "session epoch",
+)
+def check_scheduler_threads(ctx: FileContext) -> List[Finding]:
+    if ctx.relpath not in _KF303_MODULES or ctx.tree is None:
+        return []
+    w = _ThreadSiteWalker()
+    w.visit(ctx.tree)
+    declared = _declared_joinable_threads(ctx)
+    out: List[Finding] = []
+    if (w.ctors or w.spawns) and declared is None:
+        first = w.ctors[0][1] if w.ctors else w.spawns[0]
+        out.append(Finding(
+            "KF303", ctx.relpath, first.lineno,
+            "this module starts threads but declares no "
+            "_KF_JOINABLE_THREADS joinable-set — declare the thread "
+            "names at module level so close() provably joins them all",
+        ))
+        declared = []
+    for enclosing, node in w.ctors:
+        if enclosing != _KF303_FACTORY:
+            out.append(Finding(
+                "KF303", ctx.relpath, node.lineno,
+                f"threading.Thread constructed outside {_KF303_FACTORY} "
+                "— scheduler/pipeline threads must go through the "
+                "registering factory (named, declared, tracked for "
+                "close() to join)",
+            ))
+    used: Set[str] = set()
+    for node in w.spawns:
+        arg0 = node.args[0] if node.args else None
+        if not (isinstance(arg0, ast.Constant) and isinstance(arg0.value, str)):
+            out.append(Finding(
+                "KF303", ctx.relpath, node.lineno,
+                f"{_KF303_FACTORY} must be called with a literal thread "
+                "name (the declared joinable-set is matched statically)",
+            ))
+            continue
+        used.add(arg0.value)
+        if declared is not None and arg0.value not in declared:
+            out.append(Finding(
+                "KF303", ctx.relpath, node.lineno,
+                f"thread name {arg0.value!r} is not declared in "
+                "_KF_JOINABLE_THREADS — add it so the joinable-set "
+                "stays the complete inventory",
+            ))
+    for name in declared or []:
+        if name not in used:
+            out.append(Finding(
+                "KF303", ctx.relpath, 1,
+                f"_KF_JOINABLE_THREADS declares {name!r} but no "
+                f"{_KF303_FACTORY} call spawns it — drop the stale "
+                "entry (a rotting inventory hides real leaks)",
+            ))
+    return out
+
+
+# ---------------------------------------------------------------------
+# KF4xx — exception hygiene
+# ---------------------------------------------------------------------
+
+_LOG_FNS = frozenset({
+    "debug", "info", "warn", "warning", "error", "exception", "critical",
+    "fatal", "echo",
+})
+
+
+def _is_broad(handler: ast.ExceptHandler) -> Optional[str]:
+    t = handler.type
+    if t is None:
+        return "bare except:"
+    names = []
+    if isinstance(t, ast.Tuple):
+        names = [_last_segment(e) for e in t.elts]
+    else:
+        names = [_last_segment(t)]
+    for n in names:
+        if n in ("Exception", "BaseException"):
+            return f"except {n}"
+    return None
+
+
+def _handler_accounts(handler: ast.ExceptHandler) -> bool:
+    """True when the handler re-raises, logs, audits, exits, prints
+    (CLI surfaces), or *uses the bound exception* — capturing the error
+    into a list that a waiter re-raises is channeling, not swallowing."""
+    for node in ast.walk(handler):
+        if isinstance(node, ast.Raise):
+            return True
+        if isinstance(node, ast.Call):
+            chain = _attr_chain(node.func)
+            if chain in ("sys.exit", "os._exit"):
+                return True
+            if isinstance(node.func, ast.Attribute):
+                if node.func.attr in _LOG_FNS:
+                    return True
+                if node.func.attr == "record_event":
+                    return True
+            elif isinstance(node.func, ast.Name):
+                if node.func.id in _LOG_FNS | {"record_event", "print"}:
+                    return True
+        if (
+            handler.name is not None
+            and isinstance(node, ast.Name)
+            and isinstance(node.ctx, ast.Load)
+            and node.id == handler.name
+        ):
+            return True
+    return False
+
+
+@rule(
+    "KF400",
+    "silent-broad-except",
+    "a bare/broad except must log through telemetry.log, record an "
+    "audit event, or re-raise — errors that vanish here are the ones "
+    "postmortems cannot explain",
+)
+def check_silent_broad_except(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    out = []
+    for node in ctx.walk():
+        if not isinstance(node, ast.ExceptHandler):
+            continue
+        broad = _is_broad(node)
+        if broad is None:
+            continue
+        if _handler_accounts(node):
+            continue
+        out.append(Finding(
+            "KF400", ctx.relpath, node.lineno,
+            f"{broad} swallows without logging or re-raising — log via "
+            "telemetry.log, record an audit event, narrow the type, or "
+            "re-raise",
+        ))
+    return out
+
+
+# ---------------------------------------------------------------------
+# KF5xx — CLI surface
+# ---------------------------------------------------------------------
+
+_PRINT_EXEMPT = ("kungfu_tpu_torch/runner/cli.py",)
+_PRINT_EXEMPT_PREFIX = ("kungfu_tpu_torch/info/",)
+
+# the port's counterparts of scripts the reference keeps OUTSIDE its
+# scanned package (the root bench*.py, __graft_entry__.py and examples/):
+# their stdout is their product, one JSON or report line per run, which
+# scripts and tests parse. Scanned here only because the port has no
+# root scripts; nothing else is exempted.
+_PRINT_EXEMPT_ROOT_SCRIPTS = (
+    "kungfu_tpu_torch/examples/",
+    "kungfu_tpu_torch/bench.py",
+    "kungfu_tpu_torch/bench_hier.py",
+    "kungfu_tpu_torch/bench_wire_q.py",
+    "kungfu_tpu_torch/bench_resize.py",
+    "kungfu_tpu_torch/graft_entry.py",
+)
+
+
+@rule(
+    "KF500",
+    "bare-print",
+    "no bare print() outside the CLI surfaces (runner/cli.py, info/) — "
+    "everything else routes through kungfu_tpu_torch.telemetry.log so output "
+    "is leveled, rank-prefixed and capturable",
+)
+def check_bare_print(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    if ctx.relpath in _PRINT_EXEMPT or ctx.relpath.startswith(
+        _PRINT_EXEMPT_PREFIX + _PRINT_EXEMPT_ROOT_SCRIPTS
+    ):
+        return []
+    out = []
+    for node in ctx.walk():
+        if (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Name)
+            and node.func.id == "print"
+        ):
+            out.append(Finding(
+                "KF500", ctx.relpath, node.lineno,
+                "bare print() — use kungfu_tpu_torch.telemetry.log (or "
+                "log.echo() for CLI result lines)",
+            ))
+    return out
+
+
+# ---------------------------------------------------------------------
+# KF6xx — telemetry docs
+# ---------------------------------------------------------------------
+
+_METRIC_RE = re.compile(r'"(kungfu_[a-z0-9_]+[a-z0-9])"')
+
+# rendered by bespoke renderers (monitor/net.py rate gauges), not
+# registered via a string literal at one call site
+_RENDERED_ONLY = frozenset({"kungfu_egress_rate", "kungfu_ingress_rate"})
+
+
+def _source_metric_names(project: Project) -> Set[str]:
+    names: Set[str] = set()
+    for ctx in project.files:
+        names.update(_METRIC_RE.findall(ctx.source))
+    return names
+
+
+def _telemetry_doc(project: Project) -> Optional[Tuple[str, List[str]]]:
+    path = os.path.join(project.repo_root, DOCS_DIR, "telemetry.md")
+    try:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+    except OSError:
+        return None
+    return text, text.splitlines()
+
+
+@rule(
+    "KF600",
+    "metric-undocumented",
+    "every kungfu_* metric family registered anywhere in the package appears "
+    "in kungfu_tpu_torch/docs/telemetry.md — an undocumented family is "
+    "invisible to the operator staring at a dashboard at 3am",
+    scope="project",
+)
+def check_metrics_documented(project: Project) -> List[Finding]:
+    names = _source_metric_names(project)
+    out = []
+    if len(names) <= 30:
+        # the scan must keep finding the registry — a rename must not
+        # silently turn this rule into a no-op
+        out.append(Finding(
+            "KF600", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"metric-name scan found only {len(names)} families — the "
+            "lexical scan looks broken (rename?), fix the rule before "
+            "trusting it",
+        ))
+        return out
+    got = _telemetry_doc(project)
+    if got is None:
+        return [Finding("KF600", "kungfu_tpu_torch/docs/telemetry.md", 1,
+                        "kungfu_tpu_torch/docs/telemetry.md is missing")]
+    doc, _ = got
+    for name in sorted(names):
+        if name not in doc:
+            out.append(Finding(
+                "KF600", "kungfu_tpu_torch/docs/telemetry.md", 1,
+                f"metric family {name!r} is registered in the package but "
+                "absent from kungfu_tpu_torch/docs/telemetry.md — add it to "
+                "the metrics table",
+            ))
+    return out
+
+
+@rule(
+    "KF601",
+    "metric-ghost-row",
+    "metric families named in kungfu_tpu_torch/docs/telemetry.md's table "
+    "must still exist in code — stale rows mislead operators as much as "
+    "missing ones",
+    scope="project",
+)
+def check_metric_ghosts(project: Project) -> List[Finding]:
+    names = _source_metric_names(project) | _RENDERED_ONLY
+    got = _telemetry_doc(project)
+    if got is None:
+        return []  # KF600 already reports the missing doc
+    _, lines = got
+    rows = [
+        (i, l) for i, l in enumerate(lines, start=1)
+        if l.startswith("| `kungfu_")
+    ]
+    out = []
+    if len(rows) <= 20:
+        out.append(Finding(
+            "KF601", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            "metrics table not found where expected (fewer than 20 "
+            "`| \\`kungfu_...\\`` rows) — the doc layout moved, fix the "
+            "rule",
+        ))
+        return out
+    for lineno, row in rows:
+        for doc_name in re.findall(r"`(kungfu_[a-z0-9_]+)`",
+                                   row.split("|")[1]):
+            if doc_name not in names:
+                out.append(Finding(
+                    "KF601", "kungfu_tpu_torch/docs/telemetry.md", lineno,
+                    "kungfu_tpu_torch/docs/telemetry.md documents "
+                    f"{doc_name!r} but no code registers it — drop the stale "
+                    "row",
+                ))
+    return out
+
+
+# KF602 — span-doc lint: the span-kind shape of KF600/601 in one
+# bidirectional rule. Every span-kind LITERAL emitted through the tracer
+# (trace.span / trace.record / tracing.instant / trace.step spans) must
+# appear in the span table of kungfu_tpu_torch/docs/telemetry.md, and
+# every table row must still exist in code. Dynamic names (f-strings —
+# `collective.{kind}`, `host.walk[NMiB]`) are out of the table's scope
+# and stay documented in the prose "Span naming scheme" section; kinds
+# passed through a parameter indirection are declared in
+# _SPAN_INDIRECT so the scan stays honest about its blind spot.
+
+_SPAN_FNS = frozenset({"span", "record", "instant"})
+_SPAN_MODULES = frozenset({"trace", "tracing"})
+_SPAN_INDIRECT = frozenset({
+    # walks.timed_step forwards its span_name parameter to trace.span
+    "host.rs.step",
+    "host.ag.step",
+})
+
+_SPAN_TABLE_HEADING = "## Span table"
+
+
+def _source_span_names(project: Project) -> Set[str]:
+    names: Set[str] = set()
+    for ctx in project.files:
+        if ctx.tree is None:
+            continue
+        for node in ctx.walk():
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            if not (
+                isinstance(fn, ast.Attribute)
+                and fn.attr in _SPAN_FNS
+                and _last_segment(fn.value) in _SPAN_MODULES
+            ):
+                continue
+            if (
+                node.args
+                and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)
+            ):
+                names.add(node.args[0].value)
+    return names
+
+
+def _span_table_rows(project: Project) -> Optional[List[Tuple[int, str]]]:
+    """(lineno, span name) per row of the span table of
+    kungfu_tpu_torch/docs/telemetry.md, or None when the doc/heading is
+    missing."""
+    got = _telemetry_doc(project)
+    if got is None:
+        return None
+    _, lines = got
+    rows: List[Tuple[int, str]] = []
+    in_table = False
+    for i, line in enumerate(lines, start=1):
+        if line.strip() == _SPAN_TABLE_HEADING:
+            in_table = True
+            continue
+        if in_table and line.startswith("## "):
+            break
+        if in_table and line.startswith("| `"):
+            for name in re.findall(r"`([a-z0-9_.]+)`", line.split("|")[1]):
+                rows.append((i, name))
+    return rows if in_table else None
+
+
+@rule(
+    "KF602",
+    "span-doc-lint",
+    "every span-kind literal emitted through the tracer must appear in "
+    "kungfu_tpu_torch/docs/telemetry.md's span table AND every table row "
+    "must still exist in code — the span table is the operator's legend for "
+    "every /trace and /cluster/trace view (the KF600/601 contract, for spans)",
+    scope="project",
+)
+def check_spans_documented(project: Project) -> List[Finding]:
+    names = _source_span_names(project) | _SPAN_INDIRECT
+    out: List[Finding] = []
+    if len(names) <= 15:
+        # the scan must keep finding the tracer call sites — a rename
+        # must not silently turn this rule into a no-op
+        out.append(Finding(
+            "KF602", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"span-kind scan found only {len(names)} literals — the AST "
+            "scan looks broken (tracer rename?), fix the rule before "
+            "trusting it",
+        ))
+        return out
+    rows = _span_table_rows(project)
+    if rows is None:
+        return [Finding(
+            "KF602", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            "kungfu_tpu_torch/docs/telemetry.md has no "
+            f"`{_SPAN_TABLE_HEADING}` section — add the span table (one row "
+            "per span kind)",
+        )]
+    documented = {name for _, name in rows}
+    for name in sorted(names - documented):
+        out.append(Finding(
+            "KF602", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"span kind {name!r} is emitted in the package but absent from "
+            "kungfu_tpu_torch/docs/telemetry.md's span table — add a row",
+        ))
+    for lineno, name in rows:
+        if name not in names:
+            out.append(Finding(
+                "KF602", "kungfu_tpu_torch/docs/telemetry.md", lineno,
+                "kungfu_tpu_torch/docs/telemetry.md's span table documents "
+                f"{name!r} but no code emits it — drop the stale row "
+                "(dynamic-name spans belong in the prose section, not the "
+                "table)",
+            ))
+    return out
+
+
+# KF604 — audit-kind doc lint: the audit-event shape of KF600/602 in one
+# bidirectional rule. Every event-kind LITERAL passed to
+# telemetry.audit.record_event(...) must appear in the audit event table
+# of kungfu_tpu_torch/docs/telemetry.md, and every table row must still
+# exist in code. record_resize() emits kind="resize" without a literal
+# at its call sites, so "resize" is seeded whenever a call exists;
+# kinds passed through a parameter indirection (lockwatch's reporter
+# queue) are declared in _AUDIT_INDIRECT so the scan stays honest about
+# its blind spot.
+
+_AUDIT_MODULES = frozenset({"audit", "_audit"})
+_AUDIT_INDIRECT = frozenset({
+    # lockwatch._report enqueues (kind, counter, detail); _emit forwards
+    # the kind parameter to audit.record_event
+    "lock_order_violation",
+    "lock_long_held",
+})
+
+_AUDIT_TABLE_HEADING = "## Audit event table"
+
+
+def _source_audit_kinds(project: Project) -> Set[str]:
+    kinds: Set[str] = set()
+    for ctx in project.files:
+        if ctx.tree is None:
+            continue
+        for node in ctx.walk():
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            if _last_segment(fn) == "record_resize":
+                kinds.add("resize")
+                continue
+            if not (
+                isinstance(fn, ast.Attribute)
+                and fn.attr == "record_event"
+                and _last_segment(fn.value) in _AUDIT_MODULES
+            ):
+                continue
+            if (
+                node.args
+                and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)
+            ):
+                kinds.add(node.args[0].value)
+    return kinds
+
+
+def _audit_table_rows(project: Project) -> Optional[List[Tuple[int, str]]]:
+    """(lineno, event kind) per row of the audit event table of
+    kungfu_tpu_torch/docs/telemetry.md, or None when the doc/heading is
+    missing."""
+    got = _telemetry_doc(project)
+    if got is None:
+        return None
+    _, lines = got
+    rows: List[Tuple[int, str]] = []
+    in_table = False
+    for i, line in enumerate(lines, start=1):
+        if line.strip() == _AUDIT_TABLE_HEADING:
+            in_table = True
+            continue
+        if in_table and line.startswith("## "):
+            break
+        if in_table and line.startswith("| `"):
+            for name in re.findall(r"`([a-z0-9_]+)`", line.split("|")[1]):
+                rows.append((i, name))
+    return rows if in_table else None
+
+
+@rule(
+    "KF604",
+    "audit-doc-lint",
+    "every audit-event kind recorded through telemetry.audit must appear in "
+    "kungfu_tpu_torch/docs/telemetry.md's audit event table AND every table "
+    "row must still exist in code — the audit log is the operator's 'what "
+    "changed and when' surface, and an undocumented kind (or a stale row) "
+    "misleads exactly the 3am reader it exists for (the KF600/602 contract, "
+    "for audit events)",
+    scope="project",
+)
+def check_audit_kinds_documented(project: Project) -> List[Finding]:
+    kinds = _source_audit_kinds(project) | _AUDIT_INDIRECT
+    out: List[Finding] = []
+    if len(kinds) <= 8:
+        # the scan must keep finding the recorder call sites — a rename
+        # must not silently turn this rule into a no-op
+        out.append(Finding(
+            "KF604", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"audit-kind scan found only {len(kinds)} kinds — the AST "
+            "scan looks broken (record_event rename?), fix the rule "
+            "before trusting it",
+        ))
+        return out
+    rows = _audit_table_rows(project)
+    if rows is None:
+        return [Finding(
+            "KF604", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            "kungfu_tpu_torch/docs/telemetry.md has no "
+            f"`{_AUDIT_TABLE_HEADING}` section — add the audit event table "
+            "(one row per event kind)",
+        )]
+    documented = {name for _, name in rows}
+    for name in sorted(kinds - documented):
+        out.append(Finding(
+            "KF604", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"audit event kind {name!r} is recorded in the package but "
+            "absent from kungfu_tpu_torch/docs/telemetry.md's audit event "
+            "table — add a row",
+        ))
+    for lineno, name in rows:
+        if name not in kinds:
+            out.append(Finding(
+                "KF604", "kungfu_tpu_torch/docs/telemetry.md", lineno,
+                "kungfu_tpu_torch/docs/telemetry.md's audit event table "
+                f"documents {name!r} but no code records it — drop the stale "
+                "row (parameter-indirected kinds belong in _AUDIT_INDIRECT)",
+            ))
+    return out
+
+
+# KF605 — policy-signal doc lint: the adaptation-signal shape of
+# KF602/604 in one bidirectional rule. Every namespaced
+# signal key LITERAL that reaches ``PolicyContext.metrics`` — written
+# directly (``ctx.metrics["replan/last_order"] = ...``) or returned by
+# a plane's ``signals()``/``local_signals()``/``health_signals()``
+# function that policy.py merges in — must appear in the policy signal
+# table of kungfu_tpu_torch/docs/telemetry.md, and every table row must
+# still exist in code.
+# Signals are the contract between the telemetry planes and the
+# adaptation policies; an undocumented key is a steering input nobody
+# can audit, and a stale row describes a lever that no longer exists.
+# Keys assembled at runtime (none today) would be declared in
+# _SIGNAL_INDIRECT so the scan stays honest about its blind spot.
+
+_SIGNAL_FNS = frozenset({"signals", "local_signals", "health_signals"})
+_SIGNAL_INDIRECT: frozenset = frozenset()
+_SIGNAL_KEY_RE = re.compile(r"^[a-z_]+/[a-z_]+$")
+
+_SIGNAL_TABLE_HEADING = "## Policy signal table"
+
+
+def _source_signal_keys(project: Project) -> Set[str]:
+    keys: Set[str] = set()
+
+    def _maybe(value: object) -> None:
+        if isinstance(value, str) and _SIGNAL_KEY_RE.match(value):
+            keys.add(value)
+
+    for ctx in project.files:
+        if ctx.tree is None:
+            continue
+        for node in ctx.walk():
+            # ctx.metrics["x/y"] = ... anywhere in the package
+            if isinstance(node, ast.Assign):
+                for tgt in node.targets:
+                    if (
+                        isinstance(tgt, ast.Subscript)
+                        and _last_segment(tgt.value) == "metrics"
+                        and isinstance(tgt.slice, ast.Constant)
+                    ):
+                        _maybe(tgt.slice.value)
+            # dict keys and subscript writes inside the signal builders
+            if not (isinstance(node, ast.FunctionDef)
+                    and node.name in _SIGNAL_FNS):
+                continue
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Dict):
+                    for k in sub.keys:
+                        if isinstance(k, ast.Constant):
+                            _maybe(k.value)
+                elif isinstance(sub, ast.Assign):
+                    for tgt in sub.targets:
+                        if (isinstance(tgt, ast.Subscript)
+                                and isinstance(tgt.slice, ast.Constant)):
+                            _maybe(tgt.slice.value)
+    return keys
+
+
+def _signal_table_rows(project: Project) -> Optional[List[Tuple[int, str]]]:
+    """(lineno, signal key) per row of the policy signal table of
+    kungfu_tpu_torch/docs/telemetry.md, or None when the doc/heading is
+    missing."""
+    got = _telemetry_doc(project)
+    if got is None:
+        return None
+    rows: List[Tuple[int, str]] = []
+    in_table = False
+    for i, line in enumerate(got[1], start=1):
+        if line.strip() == _SIGNAL_TABLE_HEADING:
+            in_table = True
+            continue
+        if in_table and line.startswith("## "):
+            break
+        if in_table and line.startswith("| `"):
+            for name in re.findall(r"`([a-z_]+/[a-z_]+)`",
+                                   line.split("|")[1]):
+                rows.append((i, name))
+    return rows if in_table else None
+
+
+@rule(
+    "KF605",
+    "signal-doc-lint",
+    "every namespaced policy-signal key reaching PolicyContext.metrics "
+    "(direct metrics[...] writes and the planes' "
+    "signals()/local_signals()/health_signals() builders) must appear in "
+    "kungfu_tpu_torch/docs/telemetry.md's policy signal table AND every "
+    "table row must still exist in code — signals are the steering contract "
+    "between telemetry and adaptation, and an undocumented key (or stale "
+    "row) hides a lever from exactly the operator tuning it (the KF602/604 "
+    "contract, for adaptation signals)",
+    scope="project",
+)
+def check_signals_documented(project: Project) -> List[Finding]:
+    keys = _source_signal_keys(project) | _SIGNAL_INDIRECT
+    out: List[Finding] = []
+    if len(keys) <= 10:
+        # the scan must keep finding the signal builders — a rename
+        # must not silently turn this rule into a no-op
+        out.append(Finding(
+            "KF605", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"signal-key scan found only {len(keys)} keys — the AST "
+            "scan looks broken (signals() rename?), fix the rule "
+            "before trusting it",
+        ))
+        return out
+    rows = _signal_table_rows(project)
+    if rows is None:
+        return [Finding(
+            "KF605", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            "kungfu_tpu_torch/docs/telemetry.md has no "
+            f"`{_SIGNAL_TABLE_HEADING}` section — add the policy signal "
+            "table (one row per signal key)",
+        )]
+    documented = {name for _, name in rows}
+    for name in sorted(keys - documented):
+        out.append(Finding(
+            "KF605", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"policy signal {name!r} is written in the package but absent "
+            "from kungfu_tpu_torch/docs/telemetry.md's policy signal table — "
+            "add a row",
+        ))
+    for lineno, name in rows:
+        if name not in keys:
+            out.append(Finding(
+                "KF605", "kungfu_tpu_torch/docs/telemetry.md", lineno,
+                "kungfu_tpu_torch/docs/telemetry.md's policy signal table "
+                f"documents {name!r} but no code writes it — drop the stale "
+                "row (runtime-assembled keys belong in _SIGNAL_INDIRECT)",
+            ))
+    return out
+
+
+# KF606 — endpoint doc lint: the KF602/604/605
+# shape for the HTTP surface itself. Every route literal served by the
+# worker telemetry server (telemetry/http.py's route dict) or the
+# cluster aggregator (telemetry/cluster.py's CLUSTER_ROUTES /
+# HOST_DIGEST_PATH) must appear in the endpoint table of
+# kungfu_tpu_torch/docs/telemetry.md, and every table row must still be
+# served. The endpoints are the
+# operator's front door; an undocumented route is invisible tooling and
+# a stale row is a 404 in the runbook. Routes assembled at runtime
+# (embedder extra_routes) are out of scope by construction — the scan
+# only reads these two files' literals.
+
+_ENDPOINT_FILES = frozenset({
+    "kungfu_tpu_torch/telemetry/http.py",
+    "kungfu_tpu_torch/telemetry/cluster.py",
+})
+_ENDPOINT_INDIRECT: frozenset = frozenset()
+_ENDPOINT_RE = re.compile(r"^/[a-z0-9_]+(?:/[a-z0-9_]+)*$")
+
+_ENDPOINT_TABLE_HEADING = "## Endpoint table"
+
+
+def _source_endpoints(project: Project) -> Set[str]:
+    """Every route-path string literal in the two files that define the
+    telemetry HTTP surface. Both files use the literals as dict/tuple
+    route keys, so any slash-leading path literal IS a route (or a
+    cursor key naming one — same string either way)."""
+    paths: Set[str] = set()
+    for ctx in project.files:
+        if ctx.relpath not in _ENDPOINT_FILES or ctx.tree is None:
+            continue
+        for node in ctx.walk():
+            if (
+                isinstance(node, ast.Constant)
+                and isinstance(node.value, str)
+                and _ENDPOINT_RE.match(node.value)
+            ):
+                paths.add(node.value)
+    return paths
+
+
+def _endpoint_table_rows(project: Project) -> Optional[List[Tuple[int, str]]]:
+    """(lineno, route path) per row of the endpoint table of
+    kungfu_tpu_torch/docs/telemetry.md, or None when the doc/heading is
+    missing."""
+    got = _telemetry_doc(project)
+    if got is None:
+        return None
+    rows: List[Tuple[int, str]] = []
+    in_table = False
+    for i, line in enumerate(got[1], start=1):
+        if line.strip() == _ENDPOINT_TABLE_HEADING:
+            in_table = True
+            continue
+        if in_table and line.startswith("## "):
+            break
+        if in_table and line.startswith("| `"):
+            for name in re.findall(r"`(/[a-z0-9_/]+)`", line.split("|")[1]):
+                rows.append((i, name))
+    return rows if in_table else None
+
+
+@rule(
+    "KF606",
+    "endpoint-doc-lint",
+    "every HTTP route literal served by the worker telemetry server "
+    "(telemetry/http.py) or the cluster aggregator (telemetry/cluster.py) "
+    "must appear in kungfu_tpu_torch/docs/telemetry.md's endpoint table AND "
+    "every table row must still be served — the endpoints are the operator's "
+    "front door, and an undocumented route (or stale row) breaks exactly the "
+    "curl the runbook prescribes (the KF602/604/605 contract, for the HTTP "
+    "surface)",
+    scope="project",
+)
+def check_endpoints_documented(project: Project) -> List[Finding]:
+    paths = _source_endpoints(project) | _ENDPOINT_INDIRECT
+    out: List[Finding] = []
+    if len(paths) <= 12:
+        # the scan must keep finding the route literals — moving the
+        # route tables must not silently turn this rule into a no-op
+        out.append(Finding(
+            "KF606", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"endpoint scan found only {len(paths)} routes — the "
+            "literal scan looks broken (route dict moved?), fix the "
+            "rule before trusting it",
+        ))
+        return out
+    rows = _endpoint_table_rows(project)
+    if rows is None:
+        return [Finding(
+            "KF606", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            "kungfu_tpu_torch/docs/telemetry.md has no "
+            f"`{_ENDPOINT_TABLE_HEADING}` section — add the endpoint table "
+            "(one row per route)",
+        )]
+    documented = {name for _, name in rows}
+    for name in sorted(paths - documented):
+        out.append(Finding(
+            "KF606", "kungfu_tpu_torch/docs/telemetry.md", 1,
+            f"endpoint {name!r} is served by the package but absent from "
+            "kungfu_tpu_torch/docs/telemetry.md's endpoint table — add a row",
+        ))
+    for lineno, name in rows:
+        if name not in paths:
+            out.append(Finding(
+                "KF606", "kungfu_tpu_torch/docs/telemetry.md", lineno,
+                "kungfu_tpu_torch/docs/telemetry.md's endpoint table "
+                f"documents {name!r} but no code serves it — drop the stale "
+                "row (runtime-registered routes belong in "
+                "_ENDPOINT_INDIRECT)",
+            ))
+    return out
+
+
+# ---------------------------------------------------------------------
+# KF7xx — distributed protocol (the first cross-module rules)
+# ---------------------------------------------------------------------
+
+# where the registry-declared consensus knobs must surface as the
+# engine's consensus tuple (HostSession.engine_knobs)
+_CONSENSUS_FILE = "kungfu_tpu_torch/collective/host_session.py"
+_CONSENSUS_FN = "engine_knobs"
+
+
+@rule(
+    "KF700",
+    "wire-name-discipline",
+    "every name reaching a collective/submit call site (Workspace name, "
+    "all_gather_shards/broadcast_bytes/bytes_consensus names, barrier "
+    "tags) must carry runtime content — a round/sequence stamp, a "
+    "cluster version, the registered identity. A bare string literal "
+    "rendezvous name collides across back-to-back rounds: a fast peer's "
+    "round r+1 message is consumed by a slow peer still in round r "
+    "(the ':{i}@{seq}' round stamp, enforced instead of remembered)",
+    scope="project",
+)
+def check_wire_names(project: Project) -> List[Finding]:
+    cross = _cross_constants(project)
+    out = []
+    for ctx in project.files:
+        for lineno, site, desc in ctx.name_sites:
+            resolved = _resolve_desc(desc, ctx, cross)
+            if resolved is None:
+                continue  # interpolated / runtime-derived: passes
+            out.append(Finding(
+                "KF700", ctx.relpath, lineno,
+                f"constant wire name {resolved!r} at a {site} call site "
+                "— a name without a round/sequence stamp can collide "
+                "across back-to-back rounds (a fast peer's next round is "
+                "consumed by a slow peer's current one); stamp it with a "
+                "round counter, cluster version or registered identity",
+            ))
+    return out
+
+
+def _knob_registry_decls(ctx: FileContext) -> Dict[str, Tuple[int, bool]]:
+    """name -> (lineno, consensus flag) for every `_knob("NAME", ...)`
+    declaration in the registry file (AST, not import: fixtures supply
+    their own registry source)."""
+    decls: Dict[str, Tuple[int, bool]] = {}
+    for node in ctx.walk():
+        if not isinstance(node, ast.Call):
+            continue
+        if _last_segment(node.func) != "_knob":
+            continue
+        if not (node.args and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)):
+            continue
+        consensus = _is_true(_kw(node, "consensus"))
+        decls[node.args[0].value] = (node.lineno, consensus)
+    return decls
+
+
+def _consensus_tuple_entries(ctx: FileContext) -> List[Tuple[str, int]]:
+    """(knob name, lineno) for every literal-named entry of the list
+    `engine_knobs()` returns."""
+    entries: List[Tuple[str, int]] = []
+    for node in ctx.walk():
+        if not (isinstance(node, ast.FunctionDef)
+                and node.name == _CONSENSUS_FN):
+            continue
+        for sub in ast.walk(node):
+            if not isinstance(sub, ast.Return) or sub.value is None:
+                continue
+            for elt in ast.walk(sub.value):
+                if (
+                    isinstance(elt, ast.Tuple)
+                    and elt.elts
+                    and isinstance(elt.elts[0], ast.Constant)
+                    and isinstance(elt.elts[0].value, str)
+                ):
+                    entries.append((elt.elts[0].value, elt.lineno))
+    return entries
+
+
+@rule(
+    "KF701",
+    "consensus-coverage",
+    "the knob registry's consensus flags and the engine's consensus "
+    "tuple (HostSession.engine_knobs) must agree exactly: a knob "
+    "declared consensus=True but absent from the tuple would let peers "
+    "resolve divergent walk-layout/codec values and deadlock on "
+    "rendezvous names the consensus check never compared; a tuple entry "
+    "not flagged in the registry leaves the single source of truth "
+    "lying. The registry is authoritative — flag the knob there, cover "
+    "it in engine_knobs(), or do neither",
+    scope="project",
+)
+def check_consensus_coverage(project: Project) -> List[Finding]:
+    reg_ctx = sess_ctx = None
+    for ctx in project.files:
+        if ctx.relpath == _REGISTRY_FILE:
+            reg_ctx = ctx
+        elif ctx.relpath == _CONSENSUS_FILE:
+            sess_ctx = ctx
+    if reg_ctx is None:
+        return []  # not a tree with a knob registry (fixture subsets)
+    decls = _knob_registry_decls(reg_ctx)
+    consensus_decls = {
+        name: line for name, (line, flag) in decls.items() if flag
+    }
+    if sess_ctx is None:
+        if not consensus_decls:
+            return []
+        return [Finding(
+            "KF701", _REGISTRY_FILE, 1,
+            f"registry declares {len(consensus_decls)} consensus knobs "
+            f"but {_CONSENSUS_FILE} (the engine_knobs() consensus tuple) "
+            "is missing from the analyzed tree — the coverage "
+            "cross-check cannot run",
+        )]
+    entries = _consensus_tuple_entries(sess_ctx)
+    if not entries:
+        # the scan must keep finding the tuple — a rename must not
+        # silently turn this rule into a no-op
+        return [Finding(
+            "KF701", _CONSENSUS_FILE, 1,
+            f"no literal-named entries found in {_CONSENSUS_FN}() — the "
+            "consensus-tuple scan looks broken (rename?), fix the rule "
+            "before trusting it",
+        )]
+    covered = {name for name, _ in entries}
+    out = []
+    for name, line in sorted(consensus_decls.items()):
+        if name not in covered:
+            out.append(Finding(
+                "KF701", _REGISTRY_FILE, line,
+                f"knob {name} is declared consensus=True (cluster-"
+                "agreed) but does not appear in the engine_knobs() "
+                f"consensus tuple ({_CONSENSUS_FILE}) — peers could "
+                "resolve divergent values and deadlock on mismatched "
+                "rendezvous names with no fail-fast; add it to the "
+                "tuple",
+            ))
+    for name, line in entries:
+        if name in decls and not decls[name][1]:
+            out.append(Finding(
+                "KF701", _CONSENSUS_FILE, line,
+                f"engine_knobs() covers {name} but the registry does "
+                "not declare it consensus=True — the registry is the "
+                "single source of truth for the cluster-agreed set; "
+                "flag it there (or drop it from the tuple)",
+            ))
+        elif name not in decls:
+            out.append(Finding(
+                "KF701", _CONSENSUS_FILE, line,
+                f"engine_knobs() covers {name!r}, which the knob "
+                "registry does not declare at all",
+            ))
+    return out
+
+
+# the collective rendezvous entry points KF702 treats as "every peer
+# must reach this together": method-call spellings only (module
+# functions like functools.reduce stay out of scope)
+_KF702_COLLECTIVES = frozenset({
+    "all_reduce", "monitored_all_reduce", "group_all_reduce",
+    "cross_all_reduce", "all_gather", "all_gather_shards",
+    "reduce_scatter", "barrier", "bytes_consensus", "broadcast_bytes",
+    "subset_all_reduce", "all_reduce_with", "group_all_reduce_async",
+    "all_reduce_array", "run_barrier", "consensus",
+})
+
+# rank/identity attributes whose comparison marks a branch as
+# peer-asymmetric
+_KF702_IDENTITY = frozenset({
+    "rank", "local_rank", "self_rank", "self_id", "local_size",
+})
+
+
+def _is_rank_test(test: ast.expr) -> bool:
+    for node in ast.walk(test):
+        if isinstance(node, ast.Compare):
+            sides = [node.left] + list(node.comparators)
+            for side in sides:
+                seg = _last_segment(side)
+                if seg in _KF702_IDENTITY:
+                    return True
+    return False
+
+
+def _collective_calls(nodes: Sequence[ast.stmt]) -> List[ast.Call]:
+    out = []
+    for stmt in nodes:
+        for node in ast.walk(stmt):
+            if (
+                isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in _KF702_COLLECTIVES
+            ):
+                out.append(node)
+    return out
+
+
+@rule(
+    "KF702",
+    "collective-symmetry",
+    "a collective call lexically guarded by a rank/peer-identity "
+    "conditional with no collective in the counterpart branch means one "
+    "subset of peers enters a rendezvous the rest never will — the "
+    "static shadow of the scheduler's registration-divergence error, "
+    "caught at review time instead of as a hang. Rooted data movement "
+    "belongs in the engine's graph walks (reduce/broadcast/gather take "
+    "a root argument and are called by every peer)",
+)
+def check_collective_symmetry(ctx: FileContext) -> List[Finding]:
+    if ctx.tree is None:
+        return []
+    out = []
+    for node in ctx.walk():
+        if not isinstance(node, ast.If) or not _is_rank_test(node.test):
+            continue
+        body_calls = _collective_calls(node.body)
+        else_calls = _collective_calls(node.orelse)
+        lopsided = None
+        if body_calls and not else_calls:
+            lopsided = body_calls[0]
+        elif else_calls and not body_calls:
+            lopsided = else_calls[0]
+        if lopsided is None:
+            continue
+        out.append(Finding(
+            "KF702", ctx.relpath, lopsided.lineno,
+            f".{lopsided.func.attr}() runs under a rank/identity "
+            f"conditional (line {node.lineno}) whose other branch "
+            "reaches no collective — peers taking the other branch "
+            "never enter this rendezvous and the cluster hangs; make "
+            "both branches collectively symmetric or lift the call out "
+            "of the conditional",
+        ))
+    return out
+
+
+# KF703: caller-owned-buffer mutation discipline for the walk engines.
+# These modules write buffers the CALLER still owns (workspace recv
+# views, torch param views) from background stages; every such write
+# must be dominated by an abort/cancel check, or a late-arriving stage writes into a buffer the
+# caller already reused after a timeout.
+_KF703_MODULES = (
+    "kungfu_tpu_torch/collective/walks.py",
+    "kungfu_tpu_torch/collective/pipeline.py",
+    "kungfu_tpu_torch/collective/zero.py",
+)
+
+_KF703_ABORT_NAMES = frozenset({"cancel", "abort", "_abort"})
+
+# mutation helpers whose FIRST argument is the destination buffer
+_KF703_WRITE_FNS = frozenset({
+    "copyto", "decode_wire", "decode_accumulate", "reduce_inplace",
+    "reduce_segment", "copy_segment", "transform2", "transform_n",
+    "decode_into",
+})
+
+
+def _own_scope_stmts(fn: ast.AST) -> Iterable[ast.AST]:
+    """Nodes of a function body EXCLUDING nested function/lambda bodies
+    (a nested closure runs under its own abort discipline)."""
+    stack = list(getattr(fn, "body", []))
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        yield node
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def _caller_buffer_write(node: ast.AST, param_iters: Set[str]) -> Optional[str]:
+    """A short label when `node` writes a caller-owned buffer, else
+    None. Caller-owned: `<x>.recv` workspace views, the segmented
+    walk's `acc` accumulator alias, and loop variables iterating a
+    `.params` sequence (torch/optimizer views scatter writes back)."""
+    def owned(expr: ast.expr) -> Optional[str]:
+        seg = _last_segment(expr)
+        if seg == "recv":
+            return _attr_chain(expr) or "recv"
+        if isinstance(expr, ast.Name) and (
+            expr.id == "acc" or expr.id in param_iters
+        ):
+            return expr.id
+        if isinstance(expr, ast.Subscript):
+            return owned(expr.value)
+        return None
+
+    if isinstance(node, ast.Call):
+        if _last_segment(node.func) in _KF703_WRITE_FNS and node.args:
+            dst = owned(node.args[0])
+            if dst is not None:
+                return f"{_last_segment(node.func)}({dst}, ...)"
+        return None
+    if isinstance(node, ast.Assign):
+        for tgt in node.targets:
+            if isinstance(tgt, ast.Subscript):
+                dst = owned(tgt.value)
+                if dst is not None:
+                    return f"{dst}[...] = ..."
+    return None
+
+
+@rule(
+    "KF703",
+    "caller-buffer-ownership",
+    "in the walk-engine modules (collective/walks.py, pipeline.py, "
+    "zero.py) every write to a caller-owned buffer (workspace .recv "
+    "views, the segmented accumulator, param views) must be dominated "
+    "by an abort/cancel is_set() check in the same function scope — a "
+    "stage that skips the check can write a buffer the caller already "
+    "reused after a timeout (the pre-mutation discipline, generalized)",
+)
+def check_caller_buffer_ownership(ctx: FileContext) -> List[Finding]:
+    if ctx.relpath not in _KF703_MODULES or ctx.tree is None:
+        return []
+    out: List[Finding] = []
+    for fn in ctx.walk():
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        abort_refs = {
+            a.arg for a in fn.args.args + fn.args.kwonlyargs
+            if a.arg in _KF703_ABORT_NAMES
+        }
+        param_iters: Set[str] = set()
+        checks: List[int] = []
+        writes: List[Tuple[int, str]] = []
+        for node in _own_scope_stmts(fn):
+            if isinstance(node, ast.Name) and node.id in _KF703_ABORT_NAMES:
+                abort_refs.add(node.id)
+            if isinstance(node, ast.For):
+                iter_names = {
+                    n.attr for n in ast.walk(node.iter)
+                    if isinstance(n, ast.Attribute)
+                }
+                if "params" in iter_names:
+                    for t in ast.walk(node.target):
+                        if isinstance(t, ast.Name):
+                            param_iters.add(t.id)
+            if (
+                isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "is_set"
+                and _last_segment(node.func.value) in _KF703_ABORT_NAMES
+            ):
+                checks.append(node.lineno)
+        for node in _own_scope_stmts(fn):
+            label = _caller_buffer_write(node, param_iters)
+            if label is not None:
+                writes.append((node.lineno, label))
+        first_check = min(checks) if checks else None
+        for lineno, label in sorted(writes):
+            # a detected is_set() call IS proof of an abort scope even
+            # when the event is held as an attribute (self._abort) the
+            # Name-based abort_refs scan cannot see
+            if not abort_refs and not checks:
+                out.append(Finding(
+                    "KF703", ctx.relpath, lineno,
+                    f"caller-owned buffer write {label} in a function "
+                    "with no abort/cancel in scope — thread the cancel "
+                    "event through and check it before mutating, or "
+                    "document the caller's guard with a suppression",
+                ))
+            elif first_check is None or lineno < first_check:
+                out.append(Finding(
+                    "KF703", ctx.relpath, lineno,
+                    f"caller-owned buffer write {label} precedes every "
+                    "abort/cancel is_set() check in this function — a "
+                    "cancelled walk must observe the abort BEFORE "
+                    "mutating buffers the caller may have reused",
+                ))
+    return out

@@ -179,8 +179,8 @@ def _reporter_loop() -> None:
     global _report_busy
     while True:
         with _report_cond:
-            # the daemon reporter parks on its work queue; a timeout
-            # would only add wakeups, process exit reaps it
+            # kfcheck: disable=KF301 — daemon reporter parks on its work
+            # queue; timeout would only add wakeups, process exit reaps it
             _report_cond.wait_for(lambda: _report_q)
             batch, _report_q[:] = list(_report_q), []
             _report_busy = True

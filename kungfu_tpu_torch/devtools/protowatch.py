@@ -137,9 +137,9 @@ class _Watch:
             return
         try:
             strategy = self.sess.active_candidate_name()
-        # observe-only layer: a session mid-teardown may lack adaptive
-        # state; '?' in the entry IS the record of that, and raising
-        # would kill the caller's collective
+        # kfcheck: disable=KF400 — observe-only layer: a session mid-
+        # teardown may lack adaptive state; '?' in the entry IS the
+        # record of that, and raising would kill the caller's collective
         except Exception:
             strategy = "?"
         entry = (kind, str(name), str(dtype), int(nbytes), strategy)

@@ -115,8 +115,8 @@ class ConfigServer:
         threading.Thread(target=self._watch_stop, daemon=True).start()
 
     def _watch_stop(self) -> None:
-        # this daemon thread waits on the stop signal itself; stop() sets
-        # it, and process exit reaps the thread
+        # kfcheck: disable=KF301 — this daemon thread waits ON the abort
+        # signal itself; stop() sets it, and process exit reaps the thread
         self.stop_event.wait()
         self.httpd.shutdown()
 
@@ -139,7 +139,8 @@ def main(argv=None) -> None:
     from kungfu_tpu_torch.telemetry import log
 
     log.echo(f"config server on :{srv.port}")
-    # serving forever is the program; Ctrl-C interrupts the wait
+    # kfcheck: disable=KF301 — serving forever IS the program; the main
+    # thread waits on the abort signal and Ctrl-C interrupts the wait
     srv.stop_event.wait()
 
 

@@ -104,7 +104,9 @@ class StepBasedSchedule:
                 from kungfu_tpu_torch.telemetry import memory as tmem
 
                 ok, why = tmem.get_plane().grow_ok()
-            except Exception:  # noqa: BLE001 - a broken memory plane never blocks a resize
+            # kfcheck: disable=KF400 — a broken memory plane must
+            # never block a resize; fail open
+            except Exception:  # noqa: BLE001
                 ok, why = True, "plane unavailable"
             if not ok:
                 from kungfu_tpu_torch.telemetry import metrics

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -167,6 +168,11 @@ def compile_pdeathsig(cxx: Optional[str] = None) -> Path:
                     "the kf-pdeathsig shim")
 
 
+# the bound on a parallel build: each nvcc takes seconds to minutes, and
+# a build still running past this is a hung compiler, not a slow one
+BUILD_TIMEOUT_S = 900.0
+
+
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile several kernel sources at once, one nvcc each, in parallel."""
     names = list(names)
@@ -180,11 +186,17 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         except BaseException as e:  # re-raised below, after every build ends
             errors.append(e)
 
-    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    threads = [threading.Thread(target=one, args=(n,), daemon=True)
+               for n in names]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
+    for n, t in zip(names, threads):
+        t.join(max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            raise RuntimeError(
+                f"building csrc/{n}.cu did not end within "
+                f"{BUILD_TIMEOUT_S:.0f} s")
     if errors:
         raise errors[0]
     return out

@@ -209,7 +209,10 @@ class Peer:
         with self._session_lock:
             old_session = self._session
             if old_session is not None:
-                old_session.close(timeout=10.0)
+                # the old epoch's scheduler drains or cancels its
+                # in-flight buckets before the token advances
+                with trace.span("resize.drain_scheduler"):
+                    old_session.close(timeout=10.0)
             if peers.rank(self.self_id) is None:
                 self.detached = True
                 # the election would clear the role anyway, but it must

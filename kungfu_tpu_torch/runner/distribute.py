@@ -160,8 +160,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         codes = []
         for p in procs:
             try:
-                # waiting for the remote worker to finish is the job;
-                # SIGTERM/SIGALRM teardown() and KeyboardInterrupt bound it
+                # kfcheck: disable=KF301 — waiting for the remote worker
+                # to finish IS the job; SIGTERM/SIGALRM teardown() and
+                # KeyboardInterrupt bound it from outside
                 codes.append(p.wait())
             except KeyboardInterrupt:
                 teardown()

@@ -156,8 +156,8 @@ def run_all(procs: List[WorkerProc]) -> List[int]:
     codes = [None] * len(procs)
     try:
         for i, p in enumerate(procs):
-            # a training worker runs unboundedly; KeyboardInterrupt kills
-            # the batch below
+            # kfcheck: disable=KF301 — a training worker legitimately
+            # runs unboundedly; KeyboardInterrupt kills the batch below
             codes[i] = p.wait()
     except KeyboardInterrupt:
         for p in procs:

@@ -415,8 +415,9 @@ class FlightRecorder:
             from kungfu_tpu_torch.telemetry import resource
 
             return resource.get_plane().export()
-        # snapshot enrichment is best-effort: a failed /proc sweep costs
-        # the record one None field, not the journal the whole snapshot
+        # kfcheck: disable=KF400 — snapshot enrichment is best-effort:
+        # a failed /proc sweep must cost the record one None field, not
+        # the journal the whole snapshot
         except Exception:  # noqa: BLE001
             return None
 
@@ -428,7 +429,9 @@ class FlightRecorder:
             plane = tmemory.get_plane()
             plane.maybe_sweep(force=True)
             return plane.export()
-        except Exception:  # noqa: BLE001 - the memory tail is enrichment, never a failed snapshot
+        # kfcheck: disable=KF400 — same posture as _resources_doc: the
+        # memory tail is enrichment, never the reason a snapshot fails
+        except Exception:  # noqa: BLE001
             return None
 
     @staticmethod

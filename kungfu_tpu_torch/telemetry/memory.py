@@ -284,7 +284,7 @@ def tracked_bytes() -> Tuple[Dict[str, int], Dict[str, int]]:
     for key, (name, bucket, fn) in entries:
         try:
             v = fn()
-        # a raising accountant is dropped, not
+        # kfcheck: disable=KF400 — a raising accountant is dropped, not
         # retried forever and never allowed to break the sweep
         except BaseException:  # noqa: BLE001
             v = None
@@ -420,7 +420,7 @@ class MemoryPlane:
         if self._limit is None:
             try:
                 self._limit = max(0, int(self._limit_fn()))
-            # an unreadable cgroup surface
+            # kfcheck: disable=KF400 — an unreadable cgroup surface
             # degrades to "no limit known" (headroom undefined);
             # telemetry never kills training
             except BaseException:  # noqa: BLE001
@@ -518,7 +518,7 @@ class MemoryPlane:
                 windows=self.windows,
                 bytes=self._buckets.get(bucket, 0),
             )
-        # the watchdog verdict must not kill
+        # kfcheck: disable=KF400 — the watchdog verdict must not kill
         # the sweep if the audit ring is mid-teardown
         except BaseException:  # noqa: BLE001
             pass
@@ -609,7 +609,7 @@ class MemoryPlane:
                     "Fraction of the effective memory limit still free "
                     "(limit - rss) / limit",
                 ).set(hf)
-        # gauge publication rides the sweep
+        # kfcheck: disable=KF400 — gauge publication rides the sweep
         # path; a registry hiccup must cost one publication, not the
         # accounting loop
         except BaseException:  # noqa: BLE001

@@ -52,6 +52,11 @@ from kungfu_tpu_torch.transport.message import (
 from kungfu_tpu_torch.transport.server import unix_sock_path
 from kungfu_tpu_torch.utils import trace
 
+# declared lock hierarchy (kfcheck KF201): the per-peer send lock is
+# held across a send; the pool-map lock only guards dict lookups inside
+# it and must never be the outer of the two
+_KF_LOCK_ORDER = ("lock", "_pool_lock")
+
 CONN_RETRY_COUNT = 120
 # Exponential backoff between dial attempts: start fine (a joiner's server
 # comes up in tens of ms), cap at CONN_RETRY_PERIOD so a genuinely absent
@@ -248,8 +253,8 @@ class Client:
                 delay = shaper.delay(peer, data_len)
                 if delay > 0:
                     # inside the timed window, the connection's lock held:
-                    # the shaped edge serializes like a saturated pipe, and
                     # the link table and the walk profiler see it
+                    # kfcheck: disable=KF200 — deliberate test-only edge shaping: holding the per-connection lock through the delay serializes the edge exactly like a saturated pipe would
                     time.sleep(delay)
             try:
                 send_message(sock, wire_message())

@@ -26,8 +26,9 @@ import torch
 
 from kungfu_tpu_torch.telemetry import memory as tmemory
 
-# lock order: the executor takes the pool lock first, then a parked
-# worker's condition to hand the task over
+# declared lock hierarchy (kfcheck KF201): the executor takes the pool
+# lock first, then a parked worker's condition to hand the task over
+_KF_LOCK_ORDER = ("_lock", "cond")
 
 
 class _Worker:

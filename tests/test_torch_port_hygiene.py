@@ -57,7 +57,10 @@ HOST_PLANE_MODULES = ("knobs", "telemetry.log", "utils.log", "base.dtype", "base
 # the tooling twins: benchmarks, info, the A/B benches, the debug tools
 TOOLING_MODULES = ("models.fake", "devtools", "devtools.lockwatch", "devtools.protowatch",
                    "info", "info.__main__", "benchmarks", "benchmarks.__main__", "bench_hier",
-                   "bench_wire_q")
+                   "bench_wire_q",
+                   # the static analyzer and its gate
+                   "devtools.check", "devtools.kfcheck", "devtools.kfcheck.core",
+                   "devtools.kfcheck.rules", "devtools.kfcheck.__main__")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
