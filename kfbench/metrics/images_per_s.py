@@ -1,0 +1,8 @@
+"""ResNet images trained per second per card, over the whole window:
+all ranks' images over the window's host seconds, over the cards."""
+
+from kfbench import readers
+
+
+def read(record):
+    return readers.rate(record)
